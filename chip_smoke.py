@@ -2,23 +2,35 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (no JAX involved).
 
     python3 chip_smoke.py                          # the default phases
-    python3 chip_smoke.py --phases starship,kernels
+    python3 chip_smoke.py --phases oscillator,kernels
     python3 chip_smoke.py --phases gmres,profile   # measurements on demand
 
-Builds csrc/lu_kernels.cu with nvcc first. Phases (a failed phase exits
-non-zero; nothing is caught and passed over):
+Builds csrc/lu_kernels.cu and csrc/chol_kernels.cu with nvcc first (one
+process each, side by side). Phases (a failed phase exits non-zero; nothing
+is caught and passed over):
   starship: the main path, batched Starship-flip PTR (B=32, N=31, Nsub=30,
      15 SCP iterations, float32, kkt_method="staged_crpl"): every scenario
      dynamically feasible, SOLVED costs within 2% of the float64 pin, both
      LU kernels launched on that run;
   starship_f64: the same path in float64 at B=4, SOLVED costs within the
-     pin's own relative 1e-3;
-  double_integrator: batched PTR (B=128, N=31, 6 iterations, "staged_crpl"),
-     every scenario feasible, kernels launched;
-  kernels: lu_factor / lu_solve against their plain PyTorch versions at
-     every (nb, s, K) the path phases above launched them with (identical
-     pivot records, results within a relative 1e-4 / 1e-10 in float32 /
-     float64), each timed beside its bound and the torch.linalg call;
+     pin's own relative 1e-3, from a guess built on the CPU as the pin's was;
+  double_integrator_crpl: batched PTR (B=128, N=31, 6 iterations,
+     "staged_crpl"), every scenario feasible, LU kernels launched;
+  double_integrator_schur: bench.py's double integrator exactly (B=128,
+     float32, no kkt_method: the dense Schur KKT's Cholesky ladder), every
+     scenario feasible, the three Cholesky-ladder kernels launched;
+  starship_serial_lu: bench.py's serial float32 Starship PTR on the dense
+     augmented LU, SOLVED, feasible, cost within 2% of the pin;
+  oscillator: solve_oscillator(N=30, n_hom=10) in float64, SOLVED, cost
+     within 1e-3 of its pin, the deadband logic exact;
+  lcvx: the LCvx double integrator (choices 1 and 2) and the rocket
+     landing's golden search (N=80) in float64, IPM (almost) optimal, costs
+     within 1e-4 of their pins (the rocket's: the JAX package's own cost);
+  kernels: every kernel against its plain PyTorch version at every
+     (kernel, dtype, n, K) the phases above launched it with, at the
+     group's smallest and largest batch (LU: identical pivot records; all:
+     within a relative 1e-4 / 1e-10 in float32 / float64), each timed
+     beside its bound and the torch.linalg call;
   gmres (not default): FGMRES depth of the staged KKT against IPM
      convergence on the first Starship subproblems;
   profile (not default): the main path's first SCP step split by layer on
@@ -40,6 +52,14 @@ import time
 import numpy as np
 
 STARSHIP_PIN = 0.652614          # tests/reference_costs.json, float64
+OSCILLATOR_PIN = 0.12862352406944982             # the same file
+# the double integrator's two pins (the same file), and for the rocket the
+# JAX package's own solve_lcvx(N=80, tol=1e-3) (tests/rocket_lcvx_reference.py
+# on the CPU): the file's rocket pin, 429.60033, is no run of the package's
+# (its own test's configuration, N=60 at tol 0.5, gives 439.48852)
+LCVX_PINS = {"di_1": 30.482272778280244, "di_2": 16.72312696206503,
+             "rocket": 429.36347460004663}
+ROCKET_FILE_PIN = 429.60033408957395
 PEAK_FLOPS = {"float32": 67e12,  # H100 SXM, outside the tensor cores
               "float64": 67e12}  # on the FP64 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12             # HBM3, bytes/s
@@ -90,73 +110,113 @@ def _solve_work(nb, s, K, isz):
     return flops, nbytes
 
 
+def _chol_work(nb, n, isz):
+    """n^3/3 flops; the lower triangle read, the whole factor written."""
+    flops = nb * n ** 3 / 3.0
+    nbytes = nb * (n * (n + 1) // 2 + n * n) * isz
+    return flops, nbytes
+
+
+def _trisolve_work(nb, n, K, isz):
+    """n^2 K flops; the triangle read, the right-hand sides read and the
+    solution written."""
+    flops = nb * float(n) * n * K
+    nbytes = nb * (n * (n + 1) // 2 + 2 * n * K) * isz
+    return flops, nbytes
+
+
+def _work(kernel, nb, n, K, isz):
+    if kernel == "lu_factor":
+        return _factor_work(nb, n, isz)
+    if kernel == "lu_solve":
+        return _solve_work(nb, n, K, isz)
+    if kernel == "cholesky":
+        return _chol_work(nb, n, isz)
+    return _trisolve_work(nb, n, K, isz)
+
+
 def _bound(flops, nbytes, dtname):
     t_ops = flops / PEAK_FLOPS[dtname] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _kernel_case(torch, lk, kernel, dt, nb, s, K, gen):
-    """Inputs of one kernel at (nb, s, K) on the card, with the kernel, its
-    plain version and the torch.linalg call on them. The matrices have their
-    diagonals scaled by 1e-7, the size of the KKT blocks' regularization
-    pivots, so every factor pivots."""
-    M = torch.randn(nb, s, s, generator=gen, device="cuda", dtype=dt)
-    M.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
-    if kernel == "lu_factor":
-        return (lambda: lk.lu_factor(M), lambda: lk.lu_factor_plain(M),
-                lambda: torch.linalg.lu_factor(M))
-    fac = lk.lu_factor_plain(M)
-    lib_fac = torch.linalg.lu_factor(M)
-    B = torch.randn(nb, s, K, generator=gen, device="cuda", dtype=dt)
-    return (lambda: lk.lu_solve(fac, B), lambda: lk.lu_solve_plain(fac, B),
-            lambda: torch.linalg.lu_solve(*lib_fac, B))
+def _kernel_case(torch, lk, ck, kernel, dt, nb, n, K, gen):
+    """Inputs of one kernel at (nb, n, K) on the card, with the kernel, its
+    plain version and the torch.linalg call on them. The LU blocks have
+    their diagonals scaled by 1e-7, the size of the KKT blocks'
+    regularization pivots, so every factor pivots; the Cholesky inputs are
+    M M' + n I."""
+    M = torch.randn(nb, n, n, generator=gen, device="cuda", dtype=dt)
+    B = torch.randn(nb, n, K, generator=gen, device="cuda", dtype=dt)
+    if kernel in ("lu_factor", "lu_solve"):
+        M.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
+        if kernel == "lu_factor":
+            return (lambda: lk.lu_factor(M), lambda: lk.lu_factor_plain(M),
+                    lambda: torch.linalg.lu_factor(M))
+        fac = lk.lu_factor_plain(M)
+        lib_fac = torch.linalg.lu_factor(M)
+        return (lambda: lk.lu_solve(fac, B),
+                lambda: lk.lu_solve_plain(fac, B),
+                lambda: torch.linalg.lu_solve(*lib_fac, B))
+    H = M @ M.mT + n * torch.eye(n, dtype=dt, device="cuda")
+    if kernel == "cholesky":
+        return (lambda: ck.cholesky(H), lambda: ck.cholesky_plain(H),
+                lambda: torch.linalg.cholesky(H))
+    L = ck.cholesky_plain(H)
+    if kernel == "solve_lower":
+        return (lambda: ck.solve_lower(L, B),
+                lambda: ck.solve_lower_plain(L, B),
+                lambda: torch.linalg.solve_triangular(L, B, upper=False))
+    Lt = L.mT
+    return (lambda: ck.solve_lower_t(L, B),
+            lambda: ck.solve_lower_t_plain(L, B),
+            lambda: torch.linalg.solve_triangular(Lt, B, upper=True))
 
 
 def _check(torch, kernel, run, plain, tol, what):
-    """max |kernel - plain| on one input; the pivot records must be equal."""
+    """max |kernel - plain| on one input; LU pivot records must be equal."""
     out, ref = run(), plain()
     torch.cuda.synchronize()
     if kernel == "lu_factor":
         assert torch.equal(out[1], ref[1]), f"pivot records differ: {what}"
         out, ref = out[0], ref[0]
-    err = (out - ref).abs().max().item()
-    rel = err / max(ref.abs().max().item(), 1e-300)
+    err = (out - ref).abs().max().item() if ref.numel() else 0.0
+    rel = err / max(ref.abs().max().item() if ref.numel() else 1.0, 1e-300)
     assert rel <= tol, f"{what}: relative error {rel} above {tol}"
     return err
 
 
-def phase_kernels(torch, lk, shapes_by_path):
+def phase_kernels(torch, lk, ck, shapes_by_path):
     """Each kernel against its plain version at every shape a path gave it.
-    Launches are grouped by (kernel, dtype, s, K); each group is checked at
-    its smallest and largest block count nb (identical pivot records,
+    Launches are grouped by (kernel, dtype, n, K); each group is checked at
+    its smallest and largest block count nb (identical LU pivot records,
     results within a relative 1e-4 in float32 and 1e-10 in float64) and
     timed at the largest beside its bound and the torch.linalg call."""
     assert shapes_by_path, "the kernels phase checks the shapes of a path " \
-        "phase (starship, starship_f64, double_integrator)"
+        "phase"
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
     for path, shapes in shapes_by_path.items():
         groups = {}
-        for (kernel, suffix, nb, s, K), n in shapes.items():
-            groups.setdefault((kernel, suffix, s, K), {})[nb] = n
-        for (kernel, suffix, s, K), nbs in sorted(groups.items()):
+        for (kernel, suffix, nb, n, K), cnt in shapes.items():
+            groups.setdefault((kernel, suffix, n, K), {})[nb] = cnt
+        for (kernel, suffix, n, K), nbs in sorted(groups.items()):
             dt = {"f32": torch.float32, "f64": torch.float64}[suffix]
             dtname = str(dt).split(".")[-1]
             tol = 1e-4 if dt == torch.float32 else 1e-10
             err = 0.0
             for nb in sorted({min(nbs), max(nbs)}):   # timed at the last
-                run, plain, lib = _kernel_case(torch, lk, kernel, dt, nb, s,
-                                               K, gen)
+                run, plain, lib = _kernel_case(torch, lk, ck, kernel, dt, nb,
+                                               n, K, gen)
                 err = max(err, _check(torch, kernel, run, plain, tol,
                                       f"{path} {kernel} {dtname} "
-                                      f"nb={nb} s={s} K={K}"))
+                                      f"nb={nb} n={n} K={K}"))
             isz = torch.tensor([], dtype=dt).element_size()
-            flops, nbytes = (_factor_work(nb, s, isz) if kernel == "lu_factor"
-                             else _solve_work(nb, s, K, isz))
-            bound_ms, bound_by = _bound(flops, nbytes, dtname)
-            row = dict(path=path, kernel=kernel, dtype=dtname, s=s, K=K,
+            bound_ms, bound_by = _bound(*_work(kernel, nb, n, K, isz),
+                                        dtname)
+            row = dict(path=path, kernel=kernel, dtype=dtname, n=n, K=K,
                        nb_checked=sorted({min(nbs), max(nbs)}),
                        launches=sum(nbs.values()), max_abs_err=err,
                        kernel_ms=_time_ms(torch, run, 20),
@@ -183,48 +243,65 @@ STARSHIP_PARS = dict(N=31, Nsub=30, wvc=1e3, wtr=0.1, eps_abs=1e-5,
                      ipm_max_iter=60, kkt_method="staged_crpl")  # bench.py
 
 
-def _starship_solver(torch, dtype, n_iters):
+def _starship_solver(torch, dtype, n_iters, guess_device="cuda", **over):
+    """The Starship PTR solver on the card; its guess program runs on
+    guess_device (the card: the dense Schur KKT's Cholesky ladder; the CPU:
+    its LU, the path the cost pin was made on)."""
     from scptoolbox_torch.models.starship_flip import (StarshipParameters,
                                                        starship)
     from scptoolbox_torch.solvers import ptr
 
-    pbm = starship(StarshipParameters(), N=31, device="cuda")
-    solver = ptr.PTR(pbm, ptr.PTRParameters(iter_max=n_iters,
-                                            **STARSHIP_PARS),
-                     dtype=dtype, device="cuda")
-    assert solver.kkt_builder is not None, "staged probe failed"
-    return solver
+    pbm = starship(StarshipParameters(), N=31, device=guess_device)
+    pars = dict(STARSHIP_PARS, iter_max=n_iters, **over)
+    return ptr.PTR(pbm, ptr.PTRParameters(**pars), dtype=dtype,
+                   device="cuda")
 
 
-def _drive(torch, lk, fn):
-    """Run fn with the launch counts set to 0 and the launch shapes
+def _counts(lk, ck):
+    return {**lk.launch_counts(), **ck.launch_counts()}
+
+
+def _drive(torch, lk, ck, fn):
+    """Run fn with every launch count set to 0 and the launch shapes
     recorded: (fn's result, wall s, launch counts, launch shapes)."""
+    from scptoolbox_torch.ops import cuda_lib
+
     torch.cuda.synchronize()
     lk.reset_launch_counts()
-    lk.launch_shapes = collections.Counter()
+    ck.reset_launch_counts()
+    cuda_lib.launch_shapes = collections.Counter()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    shapes, lk.launch_shapes = lk.launch_shapes, None
-    return out, wall, lk.launch_counts(), shapes
+    shapes, cuda_lib.launch_shapes = cuda_lib.launch_shapes, None
+    return out, wall, _counts(lk, ck), shapes
 
 
-def _run_starship(torch, lk, tag, dtype, B, n_iters, cost_tol):
+def _ladder_launched(launches):
+    return all(launches[k] > 0 for k in ("cholesky", "solve_lower",
+                                         "solve_lower_t"))
+
+
+def _run_starship(torch, lk, ck, tag, dtype, B, n_iters, cost_tol,
+                  guess_device="cuda"):
     """Batched Starship PTR from B guesses spread by 2% in x: every
     scenario dynamically feasible, every SOLVED cost within cost_tol of the
-    float64 pin, both LU kernels launched on the run."""
+    float64 pin, both LU kernels launched on the run. The set-up (the guess
+    program, on the card on the Cholesky ladder) is recorded apart."""
     from scptoolbox_torch.config import SCPStatus
 
-    t0 = time.perf_counter()
-    solver = _starship_solver(torch, dtype, n_iters)
+    solver, setup_s, setup_launches, setup_shapes = _drive(
+        torch, lk, ck, lambda: _starship_solver(torch, dtype, n_iters,
+                                                guess_device))
+    assert solver.kkt_builder is not None, "staged probe failed"
     st = solver.kkt_builder.structure
-    log(f"[{tag}] set-up {time.perf_counter() - t0:.1f} s: "
-        f"n={solver.tmpl.n} m={solver.tmpl.m} s={st.ns + st.rmax} "
-        f"ng={st.ng} mg={st.mg}")
+    log(f"[{tag}] set-up {setup_s:.1f} s: n={solver.tmpl.n} "
+        f"m={solver.tmpl.m} s={st.ns + st.rmax} ng={st.ng} mg={st.mg} "
+        f"launches {json.dumps(setup_launches)}")
     bx, bu, bp = _scenario_batch(torch, solver, B, 0.02)
     out, wall, launches, shapes = _drive(
-        torch, lk, lambda: solver.solve_batched(bx, bu, bp, n_iters))
+        torch, lk, ck, lambda: solver.solve_batched(bx, bu, bp, n_iters))
     status = out["status"].cpu().numpy()
     feas = out["feas"].cpu().numpy()
     cost = out["J_orig"].cpu().numpy()
@@ -233,7 +310,8 @@ def _run_starship(torch, lk, tag, dtype, B, n_iters, cost_tol):
     # plus one initialization factor per subproblem
     ipm_loops = sum(int(t["ipm_iters"].max()) + 1 for t in out["traces"])
     rec = dict(B=B, N=31, Nsub=30, n_iters=n_iters,
-               dtype=str(dtype).split(".")[-1], wall_s=wall,
+               dtype=str(dtype).split(".")[-1], setup_s=setup_s,
+               setup_launches=setup_launches, wall_s=wall,
                solves_per_s=B / wall, solved=int(solved.sum()),
                feasible=int(feas.sum()),
                iters=out["iters"].cpu().numpy().tolist(),
@@ -251,22 +329,33 @@ def _run_starship(torch, lk, tag, dtype, B, n_iters, cost_tol):
     assert np.all(np.isfinite(cost)), "non-finite cost"
     assert rec["cost_solved_max_rel_dev"] <= cost_tol, rec
     assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, launches
-    return rec, shapes
+    return rec, {tag: shapes, f"{tag}_setup": setup_shapes}
 
 
-def phase_starship(torch, lk):
+def phase_starship(torch, lk, ck):
     """The main path: float32, B=32, SOLVED costs within 2% of the pin."""
-    return _run_starship(torch, lk, "starship", torch.float32, 32, 15, 0.02)
+    return _run_starship(torch, lk, ck, "starship", torch.float32, 32, 15,
+                         0.02)
 
 
-def phase_starship_f64(torch, lk):
+def phase_starship_f64(torch, lk, ck):
     """The same path in float64 on a smaller batch, held to the pin's own
-    tolerance (tests/reference_costs.json: rel 1e-3)."""
-    return _run_starship(torch, lk, "starship_f64", torch.float64, 4, 15,
-                         1e-3)
+    tolerance (tests/reference_costs.json: rel 1e-3). The pin was made from
+    the guess that the dense KKT's LU gives; its guess program fixes the
+    guess only to a few percent, and the JAX package's own PTR from the
+    Cholesky ladder's guess ends 1.5e-3 from the pin
+    (tests/starship_ladder_reference.py). So this phase builds its guess on
+    the CPU, as the pin was made; PTR runs on the card."""
+    return _run_starship(torch, lk, ck, "starship_f64", torch.float64, 4,
+                         15, 1e-3, guess_device="cpu")
 
 
-def phase_double_integrator(torch, lk, B=128, n_iters=6):
+DI_PARS = dict(N=31, Nsub=15, wvc=1e3, wtr=5e-3, ipm_tol=3e-6,
+               ipm_max_iter=30)                             # bench.py:33-36
+
+
+def _run_double_integrator(torch, lk, ck, tag, kkt_method, B=128,
+                           n_iters=6):
     from scptoolbox_torch.config import SCPStatus
     from scptoolbox_torch.models.double_integrator import (
         DoubleIntegratorParameters, double_integrator)
@@ -274,28 +363,139 @@ def phase_double_integrator(torch, lk, B=128, n_iters=6):
 
     pbm = double_integrator(DoubleIntegratorParameters(drag=True, g=0.01,
                                                        s=30.0))
-    pars = ptr.PTRParameters(N=31, Nsub=15, wvc=1e3, wtr=5e-3, ipm_tol=3e-6,
-                             ipm_max_iter=30, kkt_method="staged_crpl")
+    pars = ptr.PTRParameters(**DI_PARS, kkt_method=kkt_method)
     solver = ptr.PTR(pbm, pars, dtype=torch.float32, device="cuda")
-    assert solver.kkt_builder is not None, "staged probe failed"
     bx, bu, bp = _scenario_batch(torch, solver, B, 0.1)
     out, wall, launches, shapes = _drive(
-        torch, lk, lambda: solver.solve_batched(bx, bu, bp, n_iters))
+        torch, lk, ck, lambda: solver.solve_batched(bx, bu, bp, n_iters))
     feas = out["feas"].cpu().numpy()
     cost = out["J_orig"].cpu().numpy()
-    rec = dict(B=B, N=31, n_iters=n_iters, dtype="float32", wall_s=wall,
+    ipm_per_step = [int(t["ipm_iters"].max()) + 1 for t in out["traces"]]
+    rec = dict(B=B, N=31, n_iters=n_iters, dtype="float32",
+               kkt=solver._kkt_method or "schur", n=solver.tmpl.n,
+               m=solver.tmpl.m, nz=solver.spec.nz, wall_s=wall,
                solves_per_s=B / wall, feasible=int(feas.sum()),
                solved=int((out["status"] == int(SCPStatus.SOLVED)).sum()),
                cost_min=float(cost.min()), cost_max=float(cost.max()),
-               launches=launches)
-    log("[double_integrator] " + json.dumps(rec))
+               scp_steps=len(out["traces"]),
+               ipm_loops_per_scp_step=ipm_per_step, launches=launches)
+    log(f"[{tag}] " + json.dumps(rec))
     assert feas.all(), f"only {int(feas.sum())}/{B} scenarios feasible"
     assert np.all(np.isfinite(cost)), "non-finite cost"
+    return rec, {tag: shapes}, solver, launches
+
+
+def phase_double_integrator_crpl(torch, lk, ck):
+    """B=128 on the staged CR KKT: the LU kernels at small blocks."""
+    rec, shapes, solver, launches = _run_double_integrator(
+        torch, lk, ck, "double_integrator_crpl", "staged_crpl")
+    assert solver.kkt_builder is not None, "staged probe failed"
     assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, launches
     return rec, shapes
 
 
-def phase_gmres(torch, lk, B=4):
+def phase_double_integrator_schur(torch, lk, ck):
+    """bench.py's headline configuration: no kkt_method, which resolves to
+    the dense Schur KKT and on the card to its Cholesky ladder."""
+    rec, shapes, solver, launches = _run_double_integrator(
+        torch, lk, ck, "double_integrator_schur", None)
+    assert solver._kkt_method is None and solver.kkt_builder is None
+    assert _ladder_launched(launches), launches
+    return rec, shapes
+
+
+def phase_starship_serial_lu(torch, lk, ck):
+    """bench.py:59-83: serial float32 PTR on the dense augmented LU."""
+    from scptoolbox_torch.config import SCPStatus
+
+    solver, setup_s, setup_launches, setup_shapes = _drive(
+        torch, lk, ck, lambda: _starship_solver(torch, torch.float32, 15,
+                                                kkt_method="lu"))
+    sol, wall, launches, shapes = _drive(torch, lk, ck, solver.solve)
+    rec = dict(N=31, Nsub=30, iter_max=15, dtype="float32", kkt="lu",
+               setup_s=setup_s, setup_launches=setup_launches, wall_s=wall,
+               status=str(sol.status), feasible=bool(sol.feas),
+               iterations=sol.iterations, cost=sol.cost,
+               cost_rel_dev=abs(sol.cost / STARSHIP_PIN - 1.0),
+               ipm_iters=[h.ipm_iters for h in sol.history],
+               launches=launches)
+    log("[starship_serial_lu] " + json.dumps(rec))
+    assert sol.status == SCPStatus.SOLVED and sol.feas, rec
+    assert rec["cost_rel_dev"] <= 0.02, rec
+    return rec, {"starship_serial_lu": shapes,
+                 "starship_serial_lu_setup": setup_shapes}
+
+
+def phase_oscillator(torch, lk, ck):
+    """solve_oscillator(N=30, n_hom=10) in float64: SOLVED, the pinned cost
+    within its relative 1e-3, the deadband logic exact at the last rung
+    (tests/test_oscillator.py)."""
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.models.oscillator import (OscillatorParameters,
+                                                    solve_oscillator)
+
+    sol, wall, launches, shapes = _drive(torch, lk, ck, lambda:
+                                         solve_oscillator(
+                                             N=30, n_hom=10,
+                                             dtype=torch.float64))
+    mdl = OscillatorParameters()
+    aa, ar = sol.ud[:, 0], sol.ud[:, 1]
+    inside = np.abs(ar) < mdl.a_db
+    rec = dict(N=30, n_hom=10, dtype="float64", wall_s=wall,
+               status=str(sol.status), iterations=sol.iterations,
+               cost=sol.cost, cost_rel_dev=abs(sol.cost / OSCILLATOR_PIN
+                                               - 1.0),
+               deadband_inside_max=float(np.abs(aa[inside]).max()
+                                         if inside.any() else 0.0),
+               deadband_outside_max=float(np.abs((aa - ar)[~inside]).max()
+                                          if (~inside).any() else 0.0),
+               launches=launches)
+    log("[oscillator] " + json.dumps(rec))
+    assert sol.status == SCPStatus.SOLVED, rec
+    assert rec["cost_rel_dev"] <= 1e-3, rec
+    assert rec["deadband_inside_max"] <= 1e-6, rec
+    assert rec["deadband_outside_max"] <= 1e-6, rec
+    assert np.abs(aa).max() <= mdl.a_max + 1e-8, rec
+    assert _ladder_launched(launches), launches
+    return rec, {"oscillator": shapes}
+
+
+def phase_lcvx(torch, lk, ck):
+    """The two LCvx programs in float64: the double integrator at both
+    parameter choices, and the rocket landing's golden search over the
+    flight time (N=80); IPM OPTIMAL or ALMOST_OPTIMAL, costs within a
+    relative 1e-4 of their pins."""
+    from scptoolbox_torch.models import double_integrator_lcvx as dil
+    from scptoolbox_torch.models import rocket_landing as rl
+    from scptoolbox_torch.ops.ipm import IPMStatus
+
+    ok = (int(IPMStatus.OPTIMAL), int(IPMStatus.ALMOST_OPTIMAL))
+    runs = {
+        "di_1": lambda: dil.solve_lcvx(dil.LCvxDoubleIntegratorParameters(
+            choice=1), dtype=torch.float64),
+        "di_2": lambda: dil.solve_lcvx(dil.LCvxDoubleIntegratorParameters(
+            choice=2), dtype=torch.float64),
+        "rocket": lambda: rl.solve_lcvx(rl.Rocket(), N=80,
+                                        dtype=torch.float64)}
+    rec, shapes = {}, {}
+    for name, fn in runs.items():
+        sol, wall, launches, shp = _drive(torch, lk, ck, fn)
+        r = dict(wall_s=wall, status=int(sol.status), cost=sol.cost,
+                 cost_rel_dev=abs(sol.cost / LCVX_PINS[name] - 1.0),
+                 launches=launches)
+        if name == "rocket":
+            r["tf"] = float(sol.t[-1])
+            r["file_pin_rel_dev"] = abs(sol.cost / ROCKET_FILE_PIN - 1.0)
+        log(f"[lcvx] {name} " + json.dumps(r))
+        assert sol.status in ok, (name, r)
+        assert r["cost_rel_dev"] <= 1e-4, (name, r)
+        assert _ladder_launched(launches), (name, launches)
+        rec[name] = r
+        shapes[f"lcvx_{name}"] = shp
+    return rec, shapes
+
+
+def phase_gmres(torch, lk, ck, B=4):
     """FGMRES depth of the staged CR KKT against IPM convergence on the
     first Starship subproblems of B spread guesses (float64 k=8, float32
     k=8 and 16). Not a default phase: it measured the float32 depth that
@@ -343,7 +543,7 @@ def _union_ms(intervals):
     return total / 1e3
 
 
-def phase_profile(torch, lk, B=32, loops=10, reps=3):
+def phase_profile(torch, lk, ck, B=32, loops=10, reps=3):
     """Where the main path's first SCP step spends its time: a host-clock
     split into discretize / assemble / IPM, then `reps` windows of `loops`
     batched IPM iterations of that step, each under torch.profiler (device
@@ -402,39 +602,69 @@ def phase_profile(torch, lk, B=32, loops=10, reps=3):
 
 
 REPLACES = {"lu_factor": "scptoolbox_tpu/ops/pallas_kernels.py:373",
-            "lu_solve": "scptoolbox_tpu/ops/pallas_kernels.py:449"}
+            "lu_solve": "scptoolbox_tpu/ops/pallas_kernels.py:449",
+            "cholesky": "scptoolbox_tpu/ops/pallas_kernels.py:65",
+            "solve_lower": "scptoolbox_tpu/ops/pallas_kernels.py:129",
+            "solve_lower_t": "scptoolbox_tpu/ops/pallas_kernels.py:154"}
+SOURCES = {"lu_factor": "scptoolbox_torch/csrc/lu_kernels.cu",
+           "lu_solve": "scptoolbox_torch/csrc/lu_kernels.cu",
+           "cholesky": "scptoolbox_torch/csrc/chol_kernels.cu",
+           "solve_lower": "scptoolbox_torch/csrc/chol_kernels.cu",
+           "solve_lower_t": "scptoolbox_torch/csrc/chol_kernels.cu"}
+
+
+def _path_launches(record):
+    """{path: launch counts} of every driven run that recorded them."""
+    out = {}
+    for name, rec in record.items():
+        if not isinstance(rec, dict):
+            continue
+        if "launches" in rec:
+            out[name] = rec["launches"]
+        if "setup_launches" in rec:
+            out[f"{name}_setup"] = rec["setup_launches"]
+        for sub, r in rec.items():           # the lcvx phase's programs
+            if isinstance(r, dict) and "launches" in r:
+                out[f"{name}_{sub}"] = r["launches"]
+    return out
 
 
 def _kernel_line(record):
-    """One entry per kernel: launches from the main path's run, the largest
-    error over every check, and the times of the main path's shape that
-    launched it most often."""
+    """One entry per kernel, from the path that launched it most (the main
+    path, starship, for the LU kernels): that path's launches, the largest
+    error over every check, and the times of the shape that path launched
+    most often."""
+    by_path = _path_launches(record)
     kernels = []
     for name, replaces in REPLACES.items():
         rows = [r for r in record["kernels"] if r["kernel"] == name]
-        r = max((r for r in rows if r["path"] == "starship"),
+        path = max(by_path, key=lambda p: by_path[p].get(name, 0))
+        r = max((r for r in rows if r["path"] == path),
                 key=lambda r: r["launches"])
         kernels.append(dict(
-            name=name, route="cuda",
-            source="scptoolbox_torch/csrc/lu_kernels.cu", replaces=replaces,
-            launches=record["starship"]["launches"][name],
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=replaces, path=path, launches=by_path[path][name],
             max_abs_err=max(x["max_abs_err"] for x in rows),
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            shape=dict(nb=r["bound_nb"], s=r["s"], K=r["K"])))
+            shape=dict(nb=r["bound_nb"], n=r["n"], K=r["K"])))
     return {"kernels": kernels}
 
 
 PATHS = (("starship", phase_starship),
          ("starship_f64", phase_starship_f64),
-         ("double_integrator", phase_double_integrator))
+         ("double_integrator_crpl", phase_double_integrator_crpl),
+         ("double_integrator_schur", phase_double_integrator_schur),
+         ("starship_serial_lu", phase_starship_serial_lu),
+         ("oscillator", phase_oscillator),
+         ("lcvx", phase_lcvx))
+DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="starship,starship_f64,"
-                    "double_integrator,kernels",
+    ap.add_argument("--phases", default=DEFAULT,
                     help="comma-separated phases to run; also gmres and "
                     "profile, which are not run by default")
     args = ap.parse_args()
@@ -446,25 +676,31 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from scptoolbox_torch.ops import chol_kernels as ck
+    from scptoolbox_torch.ops import cuda_lib
     from scptoolbox_torch.ops import lu_kernels as lk
 
     card = phase_environment(torch)
     record = {"card": card}
-    t0 = time.perf_counter()
-    path = lk.build(verbose=True)
-    log(f"[build] {os.path.relpath(path, REPO)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    t_start = t0 = time.perf_counter()
+    for path in cuda_lib.build_all([lk.LIB, ck.LIB], verbose=True):
+        log(f"[build] {os.path.relpath(path, REPO)}")
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
     shapes_by_path = {}
     for name, fn in PATHS:
         if name in phases:
-            record[name], shapes_by_path[name] = fn(torch, lk)
+            t0 = time.perf_counter()
+            record[name], shapes = fn(torch, lk, ck)
+            shapes_by_path.update(shapes)
+            log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
     if "kernels" in phases:
-        record["kernels"] = phase_kernels(torch, lk, shapes_by_path)
+        record["kernels"] = phase_kernels(torch, lk, ck, shapes_by_path)
     for name, fn in (("gmres", phase_gmres), ("profile", phase_profile)):
         if name in phases:
-            record[name] = fn(torch, lk)
+            record[name] = fn(torch, lk, ck)
+    record["total_s"] = time.perf_counter() - t_start
 
-    if "kernels" in phases and "starship" in phases:
+    if "kernels" in phases and all(name in phases for name, _ in PATHS):
         log(json.dumps(_kernel_line(record)))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

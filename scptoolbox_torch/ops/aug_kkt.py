@@ -19,7 +19,8 @@ right preconditioner of FGMRES(k); a plain factored solve is kept as a guard
 
 Every array here carries the scenario batch as its leading dimension
 (JAX vmaps the whole class instead). `StagedCR` runs its block LU on
-`torch.linalg.lu_factor` / `lu_solve` (the JAX package's XLA/scipy LU);
+the library's (`ops/linalg.py`, `torch.linalg.lu_solve`; the JAX package's
+XLA/scipy LU);
 `StagedCRPL` runs it on the hand-written kernels of `ops/lu_kernels.py`.
 Both pivot (partial pivoting per block): unpivoted elimination breaks down
 on the ~1e-7 regularization pivots of these blocks.
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from scptoolbox_torch.ops import cones as cn
-from scptoolbox_torch.ops import lu_kernels
+from scptoolbox_torch.ops import linalg, lu_kernels
 from scptoolbox_torch.ops.cones import ConeSpec
 
 
@@ -311,7 +312,7 @@ class StagedCR:
     # -- pluggable small-block LU engine ---------------------------------
 
     def _blk_lu(self, D):
-        return torch.linalg.lu_factor(D)
+        return linalg.lu_factor(D)
 
     def _blk_solve(self, fac, R):
         return torch.linalg.lu_solve(fac[0], fac[1], R)

@@ -25,7 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from scptoolbox_torch.ops import chol_kernels
 from scptoolbox_torch.ops import cones as cn
+from scptoolbox_torch.ops import linalg
 from scptoolbox_torch.ops.cones import ConeSpec
 
 
@@ -86,7 +88,7 @@ class _LUKKT:
         K_reg = torch.cat([
             torch.cat([eye_n.expand(Bn, n, n), A.transpose(1, 2)], dim=2),
             torch.cat([A, -(w2 + eye_m)], dim=2)], dim=1)
-        LU, piv = torch.linalg.lu_factor(K_reg)
+        LU, piv = linalg.lu_factor(K_reg)
         return (LU, piv, w2)
 
     def solve(self, fac, rhs):
@@ -105,9 +107,12 @@ class _SchurKKT:
     """Reduced (normal-equations) KKT solve, the default
     (scptoolbox_tpu/ops/ipm.py:237): the cone rows are eliminated,
     dz_C = W^-2 (A_C dx - rhs_C), leaving the (n + nz) quasidefinite system
-    [[H, A_E'], [A_E, -eps I]] with H = A_C' W^-2 A_C + eps I, factored by LU
-    (the JAX package's CPU path) and refined twice against the exact
-    operator."""
+    [[H, A_E'], [A_E, -eps I]] with H = A_C' W^-2 A_C + eps I, refined twice
+    against the exact operator. `use_lu` follows the device, as the JAX
+    package's follows the backend: LU of the whole system on a CPU tensor;
+    on the card the Cholesky ladder L_H = chol(H), HiAE = H^-1 A_E',
+    L_S = chol(A_E HiAE + reg), on the hand-written kernels of
+    ops/chol_kernels.py."""
 
     refine_rounds = 2
 
@@ -118,6 +123,7 @@ class _SchurKKT:
         self.nz = spec.nz
         self.A_E = A[:, : self.nz]
         self.A_C = A[:, self.nz:]
+        self.use_lu = A.device.type == "cpu"
 
     def _winv2(self, W, M):
         """W^-2 applied to the columns of M (B, m_C, k)."""
@@ -136,32 +142,47 @@ class _SchurKKT:
         Bn = self.A.shape[0]
         WiAC = self._winv2(W, self.A_C)
         H = self.A_C.transpose(1, 2) @ WiAC
+        # ~100 eps of the diagonal keeps the factor positive under roundoff
+        # near convergence; refinement recovers what the shift costs
         eps_rel = 100.0 * torch.finfo(dt).eps
         reg = self.reg_eps + eps_rel * torch.abs(
             torch.diagonal(H, dim1=1, dim2=2))
         H = H + torch.diag_embed(reg)
-        K = torch.cat([
-            torch.cat([H, self.A_E.transpose(1, 2)], dim=2),
-            torch.cat([self.A_E, -self.reg_eps * torch.eye(
-                nz, dtype=dt, device=dev).expand(Bn, nz, nz)], dim=2)],
-            dim=1)
-        LU, piv = torch.linalg.lu_factor(K)
-        return ((LU, piv), W)
+        if self.use_lu:
+            K = torch.cat([
+                torch.cat([H, self.A_E.transpose(1, 2)], dim=2),
+                torch.cat([self.A_E, -self.reg_eps * torch.eye(
+                    nz, dtype=dt, device=dev).expand(Bn, nz, nz)], dim=2)],
+                dim=1)
+            return ("lu", linalg.lu_factor(K), W)
+        L_H = chol_kernels.cholesky(H)
+        HiAE = chol_kernels.cho_solve(L_H, self.A_E.transpose(1, 2))
+        S = self.A_E @ HiAE
+        reg_s = self.reg_eps + eps_rel * torch.abs(
+            torch.diagonal(S, dim1=1, dim2=2))
+        L_S = chol_kernels.cholesky(S + torch.diag_embed(reg_s))
+        return ("chol", (L_H, HiAE, L_S), W)
 
     def _solve_once(self, fac, rhs):
-        (LU, piv), W = fac
+        kind, data, W = fac
         n, nz = self.n, self.nz
         rx = rhs[:, :n]
         rE = rhs[:, n: n + nz]
         rC = rhs[:, n + nz:]
         r1 = rx + self.A_C.transpose(1, 2) @ self._winv2(W, rC)
-        sol = torch.linalg.lu_solve(LU, piv, torch.cat([r1, rE], dim=1))
-        dx, dzE = sol[:, :n], sol[:, n:]
+        if kind == "lu":
+            sol = torch.linalg.lu_solve(*data, torch.cat([r1, rE], dim=1))
+            dx, dzE = sol[:, :n], sol[:, n:]
+        else:
+            L_H, HiAE, L_S = data
+            y = chol_kernels.cho_solve(L_H, r1)
+            dzE = chol_kernels.cho_solve(L_S, self.A_E @ y - rE)
+            dx = y - HiAE @ dzE
         dzC = self._winv2(W, self.A_C @ dx - rC)
         return torch.cat([dx, dzE, dzC], dim=1)
 
     def solve(self, fac, rhs):
-        W = fac[1]
+        W = fac[2]
         sol = self._solve_once(fac, rhs)
         n = self.n
         for _ in range(self.refine_rounds):

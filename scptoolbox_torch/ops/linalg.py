@@ -1,0 +1,25 @@
+"""The library's dense LU, as the port's dense and staged KKTs call it.
+
+On the CPU, `torch.linalg.lu_factor` of a batch of matrices larger than
+128 x 128 does not return when PyTorch runs more than one intra-op thread
+(MKL's getrf prints "Parameter 6 was incorrect on entry to SLASWP" or DLASWP
+and spins; any data, finite or not, e.g. 2 x 158 x 158 at two threads), while
+one matrix at a time works at any thread count. So on the CPU the batch is
+factored one matrix at a time; on the card the batched call is kept.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torch.linalg.lu_factor of (..., n, n): (LU, 1-based pivots)."""
+    lead = M.shape[:-2]
+    if M.device.type != "cpu" or lead.numel() <= 1:
+        return torch.linalg.lu_factor(M)
+    facs = [torch.linalg.lu_factor(m) for m in M.reshape(-1, *M.shape[-2:])]
+    return (torch.stack([f[0] for f in facs]).reshape(M.shape),
+            torch.stack([f[1] for f in facs]).reshape(*lead, M.shape[-1]))

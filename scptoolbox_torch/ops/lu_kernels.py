@@ -25,101 +25,21 @@ two barriers per step.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lu_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from scptoolbox_torch.ops import cuda_lib
+from scptoolbox_torch.ops.cuda_lib import I, L, P
+
+LIB = cuda_lib.CudaLibrary("lu_kernels", {
+    "lu_factor_f32": (P, P, P, L, I, P), "lu_factor_f64": (P, P, P, L, I, P),
+    "lu_solve_f32": (P, P, P, P, L, I, I, P),
+    "lu_solve_f64": (P, P, P, P, L, I, I, P),
+    "lu_max_shared_bytes": ()})
 
 _TINY = 1e-30
-_lib = None
-_lib_lock = threading.Lock()
-
-# While a Counter, every kernel launch adds one under (kernel, dtype, nb, s, K):
-# the shapes a run gave the kernels (chip_smoke.py checks the kernels there).
-launch_shapes = None
-
-
-# --------------------------------------------------------------------------
-# build + bind
-# --------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the LU kernels are built on the card's "
-                       "machine (CUDA toolkit under /usr/local/cuda)")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/lu_kernels.cu with nvcc (sm_90a) unless the library for
-    this source and these flags is already built. Returns its path."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"liblu_kernels_{h.hexdigest()[:16]}.so"
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) + [
-        "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
-    os.replace(tmp, path)
-    return path
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for name in ("lu_factor_f32", "lu_factor_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, L, I, P]
-                fn.restype = I
-            for name in ("lu_solve_f32", "lu_solve_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, L, I, I, P]
-                fn.restype = I
-            lib.lu_max_shared_bytes.argtypes = []
-            lib.lu_max_shared_bytes.restype = I
-            _lib = lib
-    return _lib
-
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _check_cuda(t: torch.Tensor, what: str):
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
-                         f"{t.device}")
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{what}: dtype {t.dtype} not supported "
-                        "(float32, float64)")
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 # --------------------------------------------------------------------------
@@ -194,7 +114,7 @@ def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     plain version on the CPU."""
     if M.device.type == "cpu":
         return lu_factor_plain(M)
-    _check_cuda(M, "lu_factor")
+    cuda_lib.check_cuda(M, "lu_factor")
     s = M.shape[-1]
     if M.shape[-2] != s:
         raise ValueError(f"lu_factor: square blocks expected, got {M.shape}")
@@ -204,22 +124,17 @@ def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     nb = Mc.numel() // max(s * s, 1)
     if nb == 0 or s == 0:
         return out, perm
-    lib = _load()
     need = s * s * Mc.element_size()
     with torch.cuda.device(M.device):
-        cap = int(lib.lu_max_shared_bytes())
-        if need > cap:
-            raise ValueError(f"lu_factor: a {s}x{s} {M.dtype} block needs "
-                             f"{need} bytes of shared memory, the card "
-                             f"allows {cap}")
-        rc = getattr(lib, "lu_factor_" + _SUFFIX[M.dtype])(
-            Mc.data_ptr(), out.data_ptr(), perm.data_ptr(), nb, s,
-            _stream(M.device))
-    if rc != 0:
-        raise RuntimeError(f"lu_factor kernel launch failed: CUDA error {rc}")
+        cap = int(LIB.load().lu_max_shared_bytes())
+    if need > cap:
+        raise ValueError(f"lu_factor: a {s}x{s} {M.dtype} block needs "
+                         f"{need} bytes of shared memory, the card allows "
+                         f"{cap}")
+    cuda_lib.launch(LIB, "lu_factor", M.dtype, M.device, Mc.data_ptr(),
+                    out.data_ptr(), perm.data_ptr(), nb, s)
     lu_factor.launches += 1
-    if launch_shapes is not None:
-        launch_shapes[("lu_factor", _SUFFIX[M.dtype], nb, s, s)] += 1
+    cuda_lib.record("lu_factor", M.dtype, nb, s, s)
     return out, perm
 
 
@@ -233,7 +148,7 @@ def lu_solve(fac, B: torch.Tensor) -> torch.Tensor:
     F, perm = fac
     if B.device.type == "cpu":
         return lu_solve_plain(fac, B)
-    _check_cuda(B, "lu_solve")
+    cuda_lib.check_cuda(B, "lu_solve")
     s, K = B.shape[-2], B.shape[-1]
     if (F.shape[:-2] != B.shape[:-2] or F.shape[-2:] != (s, s)
             or perm.shape != F.shape[:-1] or F.dtype != B.dtype
@@ -246,16 +161,10 @@ def lu_solve(fac, B: torch.Tensor) -> torch.Tensor:
     nb = Bc.numel() // max(s * K, 1)
     if nb == 0 or s == 0 or K == 0:
         return X
-    lib = _load()
-    with torch.cuda.device(B.device):
-        rc = getattr(lib, "lu_solve_" + _SUFFIX[B.dtype])(
-            Fc.data_ptr(), Pc.data_ptr(), Bc.data_ptr(), X.data_ptr(), nb, s,
-            K, _stream(B.device))
-    if rc != 0:
-        raise RuntimeError(f"lu_solve kernel launch failed: CUDA error {rc}")
+    cuda_lib.launch(LIB, "lu_solve", B.dtype, B.device, Fc.data_ptr(),
+                    Pc.data_ptr(), Bc.data_ptr(), X.data_ptr(), nb, s, K)
     lu_solve.launches += 1
-    if launch_shapes is not None:
-        launch_shapes[("lu_solve", _SUFFIX[B.dtype], nb, s, K)] += 1
+    cuda_lib.record("lu_solve", B.dtype, nb, s, K)
     return X
 
 

@@ -105,7 +105,10 @@ class TrajectoryProblem:
     `X(t, k, x, p)` / `U(t, k, u, p)` returning lists of ConeCon, nonconvex
     path constraints `s(t, k, x, u, p) <= 0`, boundary conditions
     `gic(x, p)` / `gtc(x, p)` = 0, `integration_actions`, scaling advice
-    `xrg/urg/prg`, and `consts` bound into callbacks that declare it.
+    `xrg/urg/prg`, `consts` bound into callbacks that declare it, a host
+    `callback(rec: IterationRecord) -> bool` that serial PTR calls after
+    every iteration (True vetoes stopping), and user progress-table columns
+    (`add_table_column`).
     Callbacks receive tensors of the solver's dtype and device; constants
     they create must follow the dtype and device of their arguments.
     """
@@ -128,6 +131,15 @@ class TrajectoryProblem:
     xrg: Optional[BoundingBox] = None
     urg: Optional[BoundingBox] = None
     prg: Optional[BoundingBox] = None
+    callback: Optional[Callable] = None
+    # (key, heading, format, fn(rec: IterationRecord) -> value), appended to
+    # the serial solvers' verbose tables
+    table_columns: list = dataclasses.field(default_factory=list)
+
+    def add_table_column(self, key: str, heading: str, fmt: str,
+                         fn: Callable) -> None:
+        """Append a custom progress-table column."""
+        self.table_columns.append((key, heading, fmt, fn))
 
     def dims(self) -> Tuple[int, int, int]:
         return self.nx, self.nu, self.np

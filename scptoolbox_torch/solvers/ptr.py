@@ -1,8 +1,9 @@
-"""PTR: penalized trust region SCP, batched over scenarios.
+"""PTR: penalized trust region SCP, serial and batched over scenarios.
 
-Counterpart of `scptoolbox_tpu/solvers/ptr.py:54-336, :480-636`
-(`PTRParameters`, `_TrustRegion`, `PTR.__init__`, `_discretize`,
-`_assemble`, `_solve_sub`, `_postprocess`, `_step_impl`, `solve_batched`).
+Counterpart of `scptoolbox_tpu/solvers/ptr.py` (`PTRParameters` :54,
+`_TrustRegion`, `PTR.__init__`, `_discretize`, `_assemble`, `_solve_sub`,
+`_postprocess`, `_step_impl`, `_step_timed` :313, the serial `PTR.solve`
+:341, `solve_batched` :480 and the module-level `solve` :639).
 One SCP iteration: assemble the conic subproblem around the reference ->
 batched IPM -> extract -> re-discretize around the solution for the
 feasibility check. Per-node trust-region radii are decision variables
@@ -10,28 +11,36 @@ bounded below by the q-norm of the scaled deviation; the cost is
 J_orig + wtr (trapz(eta_x) + trapz(eta_u) + eta_p) + wvc (virtual-control
 penalties). Every step is taken on a batch of scenarios; each scenario
 applies the serial stopping rule (ptr.jl:908-932), and a scenario that has
-stopped is frozen and no longer computed.
+stopped is frozen and no longer computed. The serial solve is the batched
+step at a batch of one, with the host-side history, progress table, user
+callback and the final continuous-time replay.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from scptoolbox_torch.config import SCPStatus, default_dtype, resolve_device
+from scptoolbox_torch.config import (SCPError, SCPStatus, default_dtype,
+                                     resolve_device)
 from scptoolbox_torch.ops import ipm
-from scptoolbox_torch.ops.discretize import DiscretizationType, discretize
+from scptoolbox_torch.ops.discretize import (DiscretizationType, discretize,
+                                             propagate)
 from scptoolbox_torch.parser.problem import (ConeKind, TrajectoryProblem,
                                              bind_consts)
 from scptoolbox_torch.solvers.autoscale import solver_scaling
+from scptoolbox_torch.solvers.solution import IterationRecord, SCPSolution
 from scptoolbox_torch.solvers.structure import (ipm_kkt_kwargs, random_dltv,
                                                 resolve_kkt)
 from scptoolbox_torch.solvers.subproblem import Assembler
 from scptoolbox_torch.solvers.template import (BlockPoster, SCPTemplate,
                                                _perturb_consts)
+from scptoolbox_torch.utils.table import Column, Table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +63,7 @@ class PTRParameters:
     ipm_tol_almost: float = 1e-5
     structured_kkt: object = None
     kkt_method: object = None
+    timing_detail: bool = False   # per-phase timing in the serial history
 
 
 _Q2KIND = {1.0: ConeKind.L1, 2.0: ConeKind.SOC, math.inf: ConeKind.LINF}
@@ -258,6 +268,143 @@ class PTR:
         return self._postprocess(sol, const, ref_x, ref_u, ref_p, J_aug_ref,
                                  consts)
 
+    def _step_timed(self, ref_x, ref_u, ref_p, dltv, J_aug_ref, consts):
+        """The step split into assemble / IPM / post-process, each ended by a
+        device synchronization: (out, {formulate, solve, discretize, total,
+        overhead}) as the reference times its iterations."""
+        sync = ((lambda: torch.cuda.synchronize(self.device))
+                if self.device.type == "cuda" else (lambda: None))
+        t0 = time.perf_counter()
+        A, b, c, const = self._assemble(ref_x, ref_u, ref_p, dltv, consts)
+        sync()
+        t1 = time.perf_counter()
+        sol = self._solve_sub(A, b, c)
+        sync()
+        t2 = time.perf_counter()
+        out = self._postprocess(sol, const, ref_x, ref_u, ref_p, J_aug_ref,
+                                consts)
+        sync()
+        t3 = time.perf_counter()
+        return out, {"formulate": t1 - t0, "solve": t2 - t1,
+                     "discretize": t3 - t2, "total": t3 - t0,
+                     "overhead": 0.0}
+
+    def solve(self, warm: Optional[SCPSolution] = None,
+              verbose: bool = False) -> SCPSolution:
+        """The serial PTR loop (reference ptr.jl:448-532) from the problem's
+        guess or a previous solution, one scenario: a history record per
+        iteration, the problem's callback (True vetoes stopping; it may
+        raise `self.extra_iters` to extend the budget), a progress table
+        when verbose, an emergency exit that keeps the last finite iterate,
+        and the continuous-time replay of the result at 2 Nsub substeps."""
+        pars = self.pars
+        user_cols = list(self.pbm.table_columns or ())
+        table = Table([
+            Column("iter", "iter", "{:4d}"),
+            Column("J_orig", "J", "{:12.4e}"),
+            Column("J_aug", "J_aug", "{:12.4e}"),
+            Column("dJ_rel", "dJ %", "{:9.2e}"),
+            Column("defect", "defect", "{:9.2e}"),
+            Column("vd", "vd", "{:8.1e}"),
+            Column("vs", "vs", "{:8.1e}"),
+            Column("dev", "deviation", "{:9.2e}"),
+            Column("eta", "eta", "{:8.1e}"),
+            Column("ipm", "ipm", "{:4d}"),
+        ] + [Column(key, heading, fmt)
+             for key, heading, fmt, _ in user_cols]) if verbose else None
+
+        if warm is not None:
+            ref = tuple(self._t(a)[None] for a in (warm.xd, warm.ud, warm.p))
+        else:
+            ref = tuple(a[None] for a in self._guess)
+        consts = self.consts
+        dltv = self._discretize(*ref, consts)
+        J_aug_ref = torch.full((1,), math.inf, dtype=self.dtype,
+                               device=self.device)
+        history = []
+        status = SCPStatus.FAILED
+        out = last_good = None
+        diverged = False
+        n_iter = 0
+        self.extra_iters = 0
+        it = -1
+        np_ = lambda a: a[0].cpu().numpy()
+        while it + 1 < pars.iter_max + self.extra_iters:
+            it += 1
+            t0 = time.perf_counter()
+            if pars.timing_detail:
+                out, timing = self._step_timed(*ref, dltv, J_aug_ref, consts)
+            else:
+                out = self._step_impl(*ref, dltv, J_aug_ref, consts)
+                timing = None
+            J_aug = float(out["J_aug"][0])
+            feas = bool(out["feas"][0])
+            deviation = float(out["deviation"][0])
+            improv_rel = float(out["improv_rel"][0])
+            n_iter = it + 1
+            if not math.isfinite(J_aug):
+                # a numerically dead subproblem is not accepted as the next
+                # reference (reference ptr.jl:486-491)
+                out = last_good
+                diverged = True
+                break
+            last_good = out
+            rec = IterationRecord(
+                iteration=n_iter, x=np_(out["x"]), u=np_(out["u"]),
+                p=np_(out["p"]), J_aug=J_aug,
+                J_orig=float(out["J_orig"][0]), feas=feas,
+                deviation=deviation, improv_rel=improv_rel,
+                ipm_status=int(out["ipm_status"][0]),
+                ipm_iters=int(out["ipm_iters"][0]),
+                defect_norm=float(out["defect_norm"][0]),
+                vd_norm=float(out["vd_norm"][0]),
+                vs_norm=float(out["vs_norm"][0]),
+                timing=(dict(timing, overhead=(time.perf_counter() - t0
+                                               - timing["total"]))
+                        if timing else
+                        {"total": time.perf_counter() - t0}))
+            history.append(rec)
+            stop = (it > 0 and feas
+                    and (abs(improv_rel) <= pars.eps_rel
+                         or deviation <= pars.eps_abs))
+            if self.pbm.callback is not None and self.pbm.callback(rec):
+                stop = False
+            # after the callback, so that user columns see what it set
+            if table:
+                table.print_row(dict(
+                    iter=n_iter, J_orig=rec.J_orig, J_aug=J_aug,
+                    dJ_rel=improv_rel, defect=rec.defect_norm,
+                    vd=rec.vd_norm, vs=rec.vs_norm, dev=deviation,
+                    eta=float(out["eta_max"][0]), ipm=rec.ipm_iters,
+                    **{key: fn(rec) for key, _, _, fn in user_cols}))
+            if stop:
+                status = SCPStatus.SOLVED
+                break
+            ref = (out["x"], out["u"], out["p"])
+            dltv = out["dltv"]
+            J_aug_ref = out["J_aug"]
+
+        if out is None:
+            raise SCPError(SCPStatus.FAILED,
+                           "PTR: first subproblem numerically dead")
+        # exhausting iter_max with a clean final subproblem is SOLVED; the
+        # emergency exit is FAILED (reference scp.jl:196-245, :965-980)
+        if (status != SCPStatus.SOLVED and not diverged
+                and int(out["ipm_status"][0]) in (
+                    int(ipm.IPMStatus.OPTIMAL),
+                    int(ipm.IPMStatus.ALMOST_OPTIMAL))):
+            status = SCPStatus.SOLVED
+        ts, xs = propagate(
+            self.pbm.f, out["x"][0, 0], out["u"][0], out["p"][0],
+            self._t_grid, nsub=2 * pars.Nsub,
+            actions=self.pbm.integration_actions, consts=consts)
+        return SCPSolution(
+            status=status, algorithm="ptr", iterations=n_iter,
+            xd=np_(out["x"]), ud=np_(out["u"]), p=np_(out["p"]),
+            cost=float(out["J_orig"][0]), t_grid=self.t_np.copy(),
+            feas=bool(out["feas"][0]), history=history,
+            t_cont=ts.cpu().numpy(), x_cont=xs.cpu().numpy())
+
     def solve_batched(self, bx, bu, bp, n_iters: int):
         """Batched PTR from references bx (B, N, nx), bu (B, N, nu),
         bp (B, np), with at most n_iters iterations. Each scenario applies
@@ -331,3 +478,12 @@ class PTR:
                     feas=defect <= pars.feas_tol, defect_norm=defect,
                     status=status, iters=iters, ipm_status=ipmst,
                     traces=traces)
+
+
+def solve(pbm: TrajectoryProblem, pars: PTRParameters,
+          warm: Optional[SCPSolution] = None, verbose: bool = False,
+          dtype=None, device=None) -> SCPSolution:
+    """One-shot serial PTR solve (reference `PTR.solve`, ptr.jl:448), on the
+    card unless `device` says otherwise."""
+    return PTR(pbm, pars, dtype=dtype, device=device).solve(
+        warm=warm, verbose=verbose)

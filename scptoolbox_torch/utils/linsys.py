@@ -1,6 +1,7 @@
-"""Exact first-order-hold discretization via the matrix exponential.
+"""Exact zero- and first-order-hold discretization via the matrix
+exponential.
 
-Counterpart of `scptoolbox_tpu/utils/linsys.py:c2d_foh`.
+Counterpart of `scptoolbox_tpu/utils/linsys.py` (`c2d_zoh` :19, `c2d_foh`).
 """
 
 from __future__ import annotations
@@ -8,6 +9,19 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def c2d_zoh(A: torch.Tensor, B: torch.Tensor, dt
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact zero-order-hold discretization of dx/dt = A x + B u: (Ad, Bd)
+    with x+ = Ad x + Bd u, from exp([[A, B], [0, 0]] dt). dt may be a
+    tensor (differentiable, as the rocket landing's flight time is)."""
+    n, m = A.shape[0], B.shape[1]
+    M = torch.cat([torch.cat([A, B], dim=1),
+                   torch.zeros(m, n + m, dtype=A.dtype, device=A.device)],
+                  dim=0)
+    E = torch.linalg.matrix_exp(M * dt)
+    return E[:n, :n], E[:n, n:]
 
 
 def c2d_foh(A: torch.Tensor, B: torch.Tensor, dt

@@ -30,9 +30,7 @@ def subproblem():
         refs.tdi.DoubleIntegratorParameters(**refs.DI_MODEL)),
         tptr.PTRParameters(**refs.DI_PARS, kkt_method="staged_crpl"),
         device="cpu")
-    # jitted: the eager JAX assembly takes ten times as long on the CPU
-    A = np.asarray(jax.jit(lambda x, u, p: J._assemble(
-        x, u, p, J._discretize(x, u, p), J.consts))(*J._guess)[0])
+    A = refs.di_subproblem()[0]
     spec = J.spec
     cone_mask = jnp.asarray(spec.cone_mask(), A.dtype)
     st_j = J._kkt_builder(spec, jnp.asarray(A), REG, cone_mask).st

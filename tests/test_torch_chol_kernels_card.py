@@ -1,0 +1,88 @@
+"""The CUDA Cholesky and triangular-solve kernels
+(scptoolbox_torch/csrc/chol_kernels.cu) against their plain PyTorch
+versions, on the card. Everything here carries the `cuda` marker and skips
+where there is no CUDA device.
+
+This file imports neither JAX nor the JAX package, so that it also runs on a
+machine with the card and without JAX:
+
+    python -m pytest --noconftest tests/test_torch_chol_kernels_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scptoolbox_torch.ops import chol_kernels as ck
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _spd(nb, n, dtype, device, seed=0):
+    M = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (nb, n, n)), dtype=torch.float64)
+    return (M @ M.transpose(1, 2) + n * torch.eye(n, dtype=torch.float64)
+            ).to(dtype=dtype, device=device)
+
+
+# (nb, n, K, dtype) of the dense Schur KKT's ladder on the paths
+# chip_smoke.py drives: the batched double integrator (H 314^2, S 64^2,
+# K = 2 and nz = 64, float32), the oscillator (541 and 60, float64) and the
+# LCvx rocket landing (876 and 566, float64)
+SHAPES = [(128, 314, (2, 64), torch.float32), (128, 64, (2,), torch.float32),
+          (1, 541, (2, 60), torch.float64), (1, 60, (2,), torch.float64),
+          (1, 876, (2, 566), torch.float64), (1, 566, (2,), torch.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n,Ks,dtype", SHAPES)
+def test_kernels_equal_plain_on_card(card, nb, n, Ks, dtype):
+    """Kernel and plain version do the same operations in the same order:
+    bit for bit equal."""
+    H = _spd(nb, n, dtype, card)
+    ck.reset_launch_counts()
+    L = ck.cholesky(H)
+    assert torch.equal(L, ck.cholesky_plain(H))
+    for K in Ks:
+        B = torch.randn(nb, n, K, dtype=dtype, device=card)
+        assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
+        assert torch.equal(ck.solve_lower_t(L, B),
+                           ck.solve_lower_t_plain(L, B))
+    v = torch.randn(nb, n, dtype=dtype, device=card)
+    assert torch.equal(ck.cho_solve(L, v), ck.solve_lower_t_plain(
+        L, ck.solve_lower_plain(L, v)))
+    assert ck.launch_counts() == {"cholesky": 1,
+                                  "solve_lower": len(Ks) + 1,
+                                  "solve_lower_t": len(Ks) + 1}
+
+
+@pytest.mark.cuda
+def test_non_spd_gives_nan_not_an_error(card):
+    H = _spd(2, 40, torch.float64, card)
+    H[1, 17, 17] = -1e3
+    L = ck.cholesky(H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L[0]).all()
+    d = torch.diagonal(L[1])
+    assert torch.isnan(d[17]) and torch.isfinite(d[:17]).all()
+    assert torch.equal(torch.isnan(L), torch.isnan(ck.cholesky_plain(H)))
+
+
+@pytest.mark.cuda
+def test_transposed_view_and_empty_shapes(card):
+    H = _spd(3, 20, torch.float32, card)
+    L = ck.cholesky(H)
+    AT = torch.randn(3, 7, 20, device=card).transpose(1, 2)   # like A_E'
+    assert torch.equal(ck.cho_solve(L, AT), ck.cho_solve(L, AT.contiguous()))
+    assert ck.cholesky(torch.zeros(3, 0, 0, device=card)).shape == (3, 0, 0)
+    assert ck.cho_solve(L, torch.zeros(3, 20, 0, device=card)).shape == \
+        (3, 20, 0)
+    with pytest.raises(TypeError):
+        ck.cholesky(torch.zeros(2, 4, 4, dtype=torch.float16, device=card))
+    with pytest.raises(ValueError):
+        ck.solve_lower(L, torch.zeros(2, 20, 1, device=card))

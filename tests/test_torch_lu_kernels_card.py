@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from scptoolbox_torch.ops import cuda_lib
 from scptoolbox_torch.ops import lu_kernels as lk
 
 
@@ -60,15 +61,15 @@ def test_kernels_match_plain_on_card(card, dtype, tol, nb, s, Ks):
 @pytest.mark.cuda
 def test_launch_shapes_record_each_launch(card):
     M = _blocks(3, 16, torch.float32, card)
-    lk.launch_shapes = collections.Counter()
+    cuda_lib.launch_shapes = collections.Counter()
     try:
         fac = lk.lu_factor(M.reshape(1, 3, 16, 16))
         lk.lu_solve(fac, torch.ones(1, 3, 16, 2, device=card))
         lk.lu_solve(fac, torch.ones(1, 3, 16, 2, device=card))
         lk.lu_factor_plain(M)
-        shapes = dict(lk.launch_shapes)
+        shapes = dict(cuda_lib.launch_shapes)
     finally:
-        lk.launch_shapes = None
+        cuda_lib.launch_shapes = None
     assert shapes == {("lu_factor", "f32", 3, 16, 16): 1,
                       ("lu_solve", "f32", 3, 16, 2): 2}
 

@@ -12,6 +12,7 @@ against the JAX package's, on the same numpy inputs (float64 on the CPU).
   probes its block_kkt sweep.
 * The entry points' device policy, and what importing the package does."""
 
+import re
 import subprocess
 import sys
 
@@ -25,6 +26,7 @@ from scptoolbox_torch import interop
 from scptoolbox_torch.config import SCPStatus
 from scptoolbox_torch.ops import aug_kkt as taug
 from scptoolbox_torch.ops import cones as tcn
+from scptoolbox_torch.ops import cuda_lib
 from scptoolbox_torch.solvers import ptr as tptr
 from scptoolbox_tpu.ops import aug_kkt as jaug
 from scptoolbox_tpu.ops import cones as jcn
@@ -133,9 +135,10 @@ def test_starship_kkt_float32_matches_jax_float32(starship_solvers,
     CR factor and its plain solve (Jacobi equilibration, the IPM's float32
     regularization 1e-7, the CR levels, the arrow Schur complement; no
     FGMRES) at an interior NT scaling, in float32 by the JAX StagedCR and by
-    the port's StagedCRPL. Both are held to a relative 1e-5 of the port's
-    float64 solve of the same system, whose parity with the JAX float64
-    solve test_torch_aug_kkt.py holds."""
+    the port's StagedCRPL and StagedCR (library LU, two intra-op threads).
+    All are held to a relative 1e-5 of the port's float64 solve of the same
+    system, whose parity with the JAX float64 solve test_torch_aug_kkt.py
+    holds."""
     J, T = starship_solvers
     A = starship_subproblem[0][0]
     spec = J.spec
@@ -153,9 +156,9 @@ def test_starship_kkt_float32_matches_jax_float32(starship_solvers,
         return kkt._post_sol(W, kkt._solve_once(kkt.factor(W),
                                                 kkt._pre_rhs(W, rhs)))
 
-    def run_port(dt):
+    def run_port(dt, cls=taug.StagedCRPL):
         f = lambda a: torch.as_tensor(a, dtype=dt)[None]
-        kkt = taug.StagedCRPL(T.spec, f(A), 1e-7, torch.as_tensor(
+        kkt = cls(T.spec, f(A), 1e-7, torch.as_tensor(
             T.spec.cone_mask(), dtype=dt), T.kkt_builder.structure)
         W = tcn.nt_scaling(T.spec, f(s), f(z))
         x = kkt._post_sol(W, kkt._solve_once(kkt.factor(W),
@@ -170,6 +173,10 @@ def test_starship_kkt_float32_matches_jax_float32(starship_solvers,
         np.abs(ref).max(0)
     assert (err(jax32) <= 1e-5).all(), err(jax32)
     assert (err(run_port(torch.float32)) <= 1e-5).all()
+    # the port's StagedCR on the library LU, under two intra-op threads,
+    # where a batched CPU getrf of these 158-wide blocks never returned
+    assert (err(refs.with_threads(2, lambda: run_port(
+        torch.float32, taug.StagedCR))) <= 1e-5).all()
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -187,22 +194,35 @@ def test_import_builds_nothing_and_imports_no_jax():
         "import scptoolbox_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from scptoolbox_torch.ops import lu_kernels as lk\n"
+        "from scptoolbox_torch.ops import chol_kernels, lu_kernels\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'scptoolbox_tpu'))\n"
         "assert not bad, bad\n"
-        "assert lk._lib is None\n"
+        "assert lu_kernels.LIB.lib is None and chol_kernels.LIB.lib is None\n"
         "print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))\n")
-    from scptoolbox_torch.ops import lu_kernels as lk
-    listing = lambda: (sorted(lk.BUILD_DIR.iterdir())
-                       if lk.BUILD_DIR.exists() else None)
+    listing = lambda: (sorted(cuda_lib.BUILD_DIR.iterdir())
+                       if cuda_lib.BUILD_DIR.exists() else None)
     before = listing()
     res = subprocess.run([sys.executable, "-c", code],
-                         cwd=lk.BUILD_DIR.parent.parent,
+                         cwd=cuda_lib.BUILD_DIR.parent.parent,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) > 20        # every module was imported
     assert listing() == before
+
+
+def test_no_port_source_imports_jax():
+    """No file of the package, and not chip_smoke.py, imports JAX or the
+    JAX package, whether or not the import would run."""
+    root = cuda_lib.BUILD_DIR.parent.parent
+    files = sorted((root / "scptoolbox_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|scptoolbox_tpu)\b",
+                     re.M)
+    assert len(files) > 20
+    bad = [str(f.relative_to(root)) for f in files
+           if pat.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_interop_consts_tree_keeps_structure_and_types():

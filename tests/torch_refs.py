@@ -4,11 +4,15 @@ Each is built once per test process: the JAX Starship constructor alone takes
 several seconds on the CPU, and the double-integrator PTR is the reference of
 both the staged-KKT and the whole-slice tests."""
 
+import copy
 import dataclasses
 import functools
+import threading
 from importlib import import_module
 
+import jax
 import numpy as np
+import torch
 
 from scptoolbox_torch import interop
 from scptoolbox_tpu.solvers import ptr as jptr
@@ -38,6 +42,28 @@ def jax_di_ptr():
 
 
 @functools.cache
+def jax_di_ptr_dense():
+    """jax_di_ptr() on the default dense Schur KKT: a copy that shares its
+    template (whose construction takes seconds on the CPU) with a step of
+    its own."""
+    J = copy.copy(jax_di_ptr())
+    J._kkt_method, J._kkt_builder = None, None
+    J._step = jax.jit(lambda rx, ru, rp, dltv, Jr, consts: J._step_impl(
+        rx, ru, rp, dltv, Jr, consts))
+    return J
+
+
+@functools.cache
+def di_subproblem():
+    """(A, b, c, const) of the JAX double-integrator PTR's first subproblem,
+    at its guess, as numpy arrays (the assembly jitted: eagerly it takes ten
+    times as long on the CPU)."""
+    J = jax_di_ptr()
+    return tuple(np.asarray(a) for a in jax.jit(lambda x, u, p: J._assemble(
+        x, u, p, J._discretize(x, u, p), J.consts))(*J._guess))
+
+
+@functools.cache
 def starship_pair():
     """The Starship problem at N=31 from both packages, the port's built
     from the JAX model parameters, on the CPU."""
@@ -59,3 +85,22 @@ def interior(spec, rng):
         off += d
     v[: spec.nz] = 0.0
     return v
+
+
+def with_threads(n, fn, timeout=60.0):
+    """fn() under n intra-op threads, in a daemon thread with a deadline."""
+    out = {}
+
+    def run():
+        prev = torch.get_num_threads()
+        torch.set_num_threads(n)
+        try:
+            out["value"] = fn()
+        finally:
+            torch.set_num_threads(prev)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"no result after {timeout} s at {n} threads"
+    return out["value"]
