@@ -5,9 +5,9 @@
     python3 chip_smoke.py --phases oscillator,kernels
     python3 chip_smoke.py --phases gmres,profile   # measurements on demand
 
-Builds csrc/lu_kernels.cu and csrc/chol_kernels.cu with nvcc first (one
-process each, side by side). Phases (a failed phase exits non-zero; nothing
-is caught and passed over):
+Builds csrc/lu_kernels.cu, csrc/chol_kernels.cu and csrc/gj_kernels.cu with
+nvcc first (one process each, side by side). Phases (a failed phase exits
+non-zero; nothing is caught and passed over):
   starship: the main path, batched Starship-flip PTR (B=32, N=31, Nsub=30,
      15 SCP iterations, float32, kkt_method="staged_crpl"): every scenario
      dynamically feasible, SOLVED costs within 2% of the float64 pin, both
@@ -30,7 +30,9 @@ is caught and passed over):
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
      within a relative 1e-4 / 1e-10 in float32 / float64), each timed
-     beside its bound and the torch.linalg call;
+     beside its bound and the torch.linalg call; and gj_inverse, which no
+     path launches, at the Starship phases' lu_factor block shapes on
+     Jacobi-equilibrated quasidefinite blocks, beside torch.linalg.inv;
   gmres (not default): FGMRES depth of the staged KKT against IPM
      convergence on the first Starship subproblems;
   profile (not default): the main path's first SCP step split by layer on
@@ -125,7 +127,14 @@ def _trisolve_work(nb, n, K, isz):
     return flops, nbytes
 
 
+def _gj_work(nb, s, isz):
+    """2 s^3 flops; the block read once and its inverse written once."""
+    return nb * 2.0 * s ** 3, nb * 2 * s * s * isz
+
+
 def _work(kernel, nb, n, K, isz):
+    if kernel == "gj_inverse":
+        return _gj_work(nb, n, isz)
     if kernel == "lu_factor":
         return _factor_work(nb, n, isz)
     if kernel == "lu_solve":
@@ -141,12 +150,34 @@ def _bound(flops, nbytes, dtname):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _kernel_case(torch, lk, ck, kernel, dt, nb, n, K, gen):
+def _quasidefinite(torch, nb, s, dt, gen):
+    """nb Jacobi-equilibrated quasidefinite blocks [[H, A'], [A, -D]] of
+    size s (H = G G' + n1 I, D positive diagonal), the blocks the staged
+    KKT's Gauss-Jordan inverse was written for."""
+    n1 = s // 3 + 1
+    n2 = s - n1
+    G = torch.randn(nb, n1, n1, generator=gen, device="cuda", dtype=dt)
+    A = torch.randn(nb, n2, n1, generator=gen, device="cuda", dtype=dt)
+    D = torch.rand(nb, n2, generator=gen, device="cuda", dtype=dt) + 0.1
+    K = torch.zeros(nb, s, s, device="cuda", dtype=dt)
+    K[:, :n1, :n1] = G @ G.mT + n1 * torch.eye(n1, device="cuda", dtype=dt)
+    K[:, n1:, :n1] = A
+    K[:, :n1, n1:] = A.mT
+    K[:, n1:, n1:] = -torch.diag_embed(D)
+    sc = torch.diagonal(K, dim1=-2, dim2=-1).abs().rsqrt()
+    return K * sc[:, :, None] * sc[:, None, :]
+
+
+def _kernel_case(torch, lk, ck, gk, kernel, dt, nb, n, K, gen):
     """Inputs of one kernel at (nb, n, K) on the card, with the kernel, its
     plain version and the torch.linalg call on them. The LU blocks have
     their diagonals scaled by 1e-7, the size of the KKT blocks'
     regularization pivots, so every factor pivots; the Cholesky inputs are
-    M M' + n I."""
+    M M' + n I; the Gauss-Jordan inputs equilibrated quasidefinite blocks."""
+    if kernel == "gj_inverse":
+        Q = _quasidefinite(torch, nb, n, dt, gen)
+        return (lambda: gk.gj_inverse(Q), lambda: gk.gj_inverse_plain(Q),
+                lambda: torch.linalg.inv(Q))
     M = torch.randn(nb, n, n, generator=gen, device="cuda", dtype=dt)
     B = torch.randn(nb, n, K, generator=gen, device="cuda", dtype=dt)
     if kernel in ("lu_factor", "lu_solve"):
@@ -187,18 +218,34 @@ def _check(torch, kernel, run, plain, tol, what):
     return err
 
 
-def phase_kernels(torch, lk, ck, shapes_by_path):
+def _gj_shapes(shapes_by_path):
+    """gj_inverse's shapes: no path launches it, so it takes the lu_factor
+    groups of the Starship phases, the CR blocks it was written for."""
+    out = collections.Counter()
+    for path in ("starship", "starship_f64"):
+        for (kernel, suffix, nb, n, K), cnt in shapes_by_path.get(
+                path, {}).items():
+            if kernel == "lu_factor":
+                out[("gj_inverse", suffix, nb, n, K)] += cnt
+    return out
+
+
+def phase_kernels(torch, lk, ck, gk, shapes_by_path):
     """Each kernel against its plain version at every shape a path gave it.
     Launches are grouped by (kernel, dtype, n, K); each group is checked at
     its smallest and largest block count nb (identical LU pivot records,
     results within a relative 1e-4 in float32 and 1e-10 in float64) and
-    timed at the largest beside its bound and the torch.linalg call."""
+    timed at the largest beside its bound and the torch.linalg call.
+    gj_inverse, on no path, is checked and timed the same way at the
+    Starship phases' lu_factor shapes (the path "kernels"); its launches
+    are the ones this phase makes."""
     assert shapes_by_path, "the kernels phase checks the shapes of a path " \
         "phase"
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    for path, shapes in shapes_by_path.items():
+    for path, shapes in (*shapes_by_path.items(),
+                         ("kernels", _gj_shapes(shapes_by_path))):
         groups = {}
         for (kernel, suffix, nb, n, K), cnt in shapes.items():
             groups.setdefault((kernel, suffix, n, K), {})[nb] = cnt
@@ -207,18 +254,22 @@ def phase_kernels(torch, lk, ck, shapes_by_path):
             dtname = str(dt).split(".")[-1]
             tol = 1e-4 if dt == torch.float32 else 1e-10
             err = 0.0
+            launched = gk.gj_inverse.launches
             for nb in sorted({min(nbs), max(nbs)}):   # timed at the last
-                run, plain, lib = _kernel_case(torch, lk, ck, kernel, dt, nb,
-                                               n, K, gen)
+                run, plain, lib = _kernel_case(torch, lk, ck, gk, kernel, dt,
+                                               nb, n, K, gen)
                 err = max(err, _check(torch, kernel, run, plain, tol,
                                       f"{path} {kernel} {dtname} "
                                       f"nb={nb} n={n} K={K}"))
             isz = torch.tensor([], dtype=dt).element_size()
             bound_ms, bound_by = _bound(*_work(kernel, nb, n, K, isz),
                                         dtname)
+            # gj_inverse: the launches of its checks just above
+            launches = (gk.gj_inverse.launches - launched
+                        if kernel == "gj_inverse" else sum(nbs.values()))
             row = dict(path=path, kernel=kernel, dtype=dtname, n=n, K=K,
                        nb_checked=sorted({min(nbs), max(nbs)}),
-                       launches=sum(nbs.values()), max_abs_err=err,
+                       launches=launches, max_abs_err=err,
                        kernel_ms=_time_ms(torch, run, 20),
                        plain_ms=_time_ms(torch, plain, 2),
                        library_ms=_time_ms(torch, lib, 20),
@@ -605,12 +656,14 @@ REPLACES = {"lu_factor": "scptoolbox_tpu/ops/pallas_kernels.py:373",
             "lu_solve": "scptoolbox_tpu/ops/pallas_kernels.py:449",
             "cholesky": "scptoolbox_tpu/ops/pallas_kernels.py:65",
             "solve_lower": "scptoolbox_tpu/ops/pallas_kernels.py:129",
-            "solve_lower_t": "scptoolbox_tpu/ops/pallas_kernels.py:154"}
+            "solve_lower_t": "scptoolbox_tpu/ops/pallas_kernels.py:154",
+            "gj_inverse": "scptoolbox_tpu/ops/pallas_kernels.py:252"}
 SOURCES = {"lu_factor": "scptoolbox_torch/csrc/lu_kernels.cu",
            "lu_solve": "scptoolbox_torch/csrc/lu_kernels.cu",
            "cholesky": "scptoolbox_torch/csrc/chol_kernels.cu",
            "solve_lower": "scptoolbox_torch/csrc/chol_kernels.cu",
-           "solve_lower_t": "scptoolbox_torch/csrc/chol_kernels.cu"}
+           "solve_lower_t": "scptoolbox_torch/csrc/chol_kernels.cu",
+           "gj_inverse": "scptoolbox_torch/csrc/gj_kernels.cu"}
 
 
 def _path_launches(record):
@@ -633,17 +686,24 @@ def _kernel_line(record):
     """One entry per kernel, from the path that launched it most (the main
     path, starship, for the LU kernels): that path's launches, the largest
     error over every check, and the times of the shape that path launched
-    most often."""
+    most often. gj_inverse, which no path launches, has the path "kernels"
+    and the launches of its checks there, at its largest shape."""
     by_path = _path_launches(record)
     kernels = []
     for name, replaces in REPLACES.items():
         rows = [r for r in record["kernels"] if r["kernel"] == name]
-        path = max(by_path, key=lambda p: by_path[p].get(name, 0))
-        r = max((r for r in rows if r["path"] == path),
-                key=lambda r: r["launches"])
+        if name == "gj_inverse":
+            path = "kernels"
+            r = max(rows, key=lambda r: r["bound_nb"] * r["n"])
+            launches = sum(x["launches"] for x in rows)
+        else:
+            path = max(by_path, key=lambda p: by_path[p].get(name, 0))
+            r = max((r for r in rows if r["path"] == path),
+                    key=lambda r: r["launches"])
+            launches = by_path[path][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=replaces, path=path, launches=by_path[path][name],
+            replaces=replaces, path=path, launches=launches,
             max_abs_err=max(x["max_abs_err"] for x in rows),
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -678,12 +738,13 @@ def main():
     sys.path.insert(0, REPO)
     from scptoolbox_torch.ops import chol_kernels as ck
     from scptoolbox_torch.ops import cuda_lib
+    from scptoolbox_torch.ops import gj_kernels as gk
     from scptoolbox_torch.ops import lu_kernels as lk
 
     card = phase_environment(torch)
     record = {"card": card}
     t_start = t0 = time.perf_counter()
-    for path in cuda_lib.build_all([lk.LIB, ck.LIB], verbose=True):
+    for path in cuda_lib.build_all([lk.LIB, ck.LIB, gk.LIB], verbose=True):
         log(f"[build] {os.path.relpath(path, REPO)}")
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     shapes_by_path = {}
@@ -694,7 +755,7 @@ def main():
             shapes_by_path.update(shapes)
             log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
     if "kernels" in phases:
-        record["kernels"] = phase_kernels(torch, lk, ck, shapes_by_path)
+        record["kernels"] = phase_kernels(torch, lk, ck, gk, shapes_by_path)
     for name, fn in (("gmres", phase_gmres), ("profile", phase_profile)):
         if name in phases:
             record[name] = fn(torch, lk, ck)

@@ -20,23 +20,69 @@
 // (n = 60..876, 1..128 matrices, K = 1, 2 or nz columns) the chain of
 // dependent steps bounds them, not bytes or flops: a factor is n steps, a
 // solve n steps, and a step that needs the whole block to agree costs a
-// __syncthreads(). The matrices do not fit in shared memory (876^2 doubles
-// are 6.1 MB, 314^2 floats 394 KB, against 227 KB a block), so one thread
-// block owns one matrix (factor) or one (matrix, block of RHS columns) pair
-// (solves) and works on it in device memory, where the 50 MB L2 cache holds
-// it. Both are blocked in panels of columns kept in shared memory, which cuts
-// the block barriers from one or two per column to two per column of the
-// panel factor (factor) or two per panel (solves, whose diagonal blocks are
-// chained by warp shuffles), and makes the factor read and write each
-// trailing entry once per panel instead of once per column.
+// barrier. The matrices do not fit in one block's shared memory (876^2
+// doubles are 6.1 MB, 314^2 floats 394 KB, against 227 KB a block), so they
+// are worked on in device memory, where the 50 MB L2 cache holds them, in
+// panels of up to 32 columns (rows) kept in shared memory or registers.
 //
-// Built with -fmad=false so that every product and difference rounds as the
-// plain PyTorch version's separate operations do; kernel and plain version
-// then agree bit for bit.
+// Two designs each for the factor and the backward solve, chosen by the
+// launcher from the batch (solve_lower always takes tri_solve_kernel):
+// * One thread block owns a matrix (cholesky_kernel), or a matrix and a
+//   block of right-hand-side columns (tri_solve_kernel), when the batch
+//   alone fills the card: more than half as many matrices as SMs for the
+//   factor; for the backward solve, more matrices than the card holds
+//   clusters of 8 blocks at once (16 on an H100).
+// * Otherwise (the serial programs factor one matrix at a time) one matrix
+//   is spread over many SMs:
+//   - cholesky_spread_kernel runs as a cooperative persistent grid of up to
+//     one block per SM, with grid.sync() between its phases. A cluster (8,
+//     at most 16 blocks) would give cheaper barriers, but the factor of an
+//     876^2 float64 matrix lives in L2 and not in a cluster's shared memory
+//     either way, and its trailing updates want every SM. Per panel of 32
+//     columns, two phases: (A) every block factors the diagonal block
+//     redundantly in one warp's registers (the steps chained by shuffles),
+//     then the blocks factor the panel's rows below it, one row per thread,
+//     rows dealt round-robin over the blocks; (B) the blocks share the
+//     update of the trailing lower triangle in 64 x 64 tiles, each staging
+//     its two slices of the panel in shared memory and keeping a 4 x 4
+//     register tile per thread. 2 grid barriers per panel, 1 + 2 ceil(n/32)
+//     in all: 57 at n = 876. What remains is the diagonal block's chain of
+//     32 dependent sqrt, division and shuffle steps per panel, which no
+//     number of SMs shortens.
+//   - solve_lt_cluster_kernel runs thread-block clusters of up to 8 blocks,
+//     one or more per matrix, each on a block of right-hand-side columns.
+//     The 32-row panels are dealt round-robin over a cluster's blocks, and
+//     each block keeps its panels' rows of X in shared memory. Per panel,
+//     from the bottom: its owner solves the diagonal block (a thread per
+//     column, the panel's 32 rows in its registers, so that each step's
+//     division serves one column and no step waits on a shuffle) and
+//     writes the solved rows into every block's shared memory (distributed
+//     shared memory); one cluster barrier; every block applies them to its
+//     own rows above the panel. The owner of the next panel brings that
+//     panel's rows up to date first, in the same registers, and solves it
+//     before it updates its other rows, so that the chain from panel to
+//     panel passes 32 rows of one block. The diagonal block and
+//     each block's part of the panel's rows of L (rows lo..lo+w-1,
+//     contiguous along its own columns) are copied into shared memory with
+//     cp.async two panels ahead, issued between the barrier's arrive and its
+//     wait; L does not change, so the copies need no barrier of their own.
+//
+// Bit for bit. Each entry takes its updates in the plain version's order:
+// in the factor, every trailing entry takes the panels' products in column
+// order, one product and one difference at a time, and is scaled by
+// 1/sqrt(d) exactly when the right-looking plain version scales it; in the
+// solves, every x_i takes its subtractions in the plain substitution's
+// order. Built with -fmad=false so that every product and difference rounds
+// as the plain PyTorch version's separate operations do; kernel and plain
+// version then agree bit for bit, whichever design runs.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -46,6 +92,11 @@ constexpr int kSolveThreads = 512;
 constexpr int kSolveCols = 32;
 constexpr int kPanel = 32;
 constexpr int kTargetBlocks = 132;  // SMs of an H100 SXM
+constexpr int kSpreadThreads = 256;
+constexpr int kW = 32;          // panel width of the spread designs
+constexpr int kTile = 64;       // trailing tile of the spread factor
+constexpr int kCluster = 8;     // blocks of a solve cluster (portable)
+constexpr int kClusterThreads = 512;
 
 // The factor is blocked into panels of W columns (W from the shared memory
 // the card allows, at most kMaxPanel). A panel is loaded into shared memory
@@ -260,14 +311,505 @@ tri_solve_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
   }
 }
 
+// Phase (A) of the spread factor on one warp, lane r holding row r of the
+// diagonal block in x (zeros right of the diagonal): at step c the diagonal
+// entry (lane c's) gives 1/sqrt, every row scales its entry c, and row r's
+// entries c2 in (c, r] take the product with row c2's entry c. The update
+// is computed on every lane and kept where it applies (a select, not a
+// branch, so that the unrolled steps schedule as one block); kFull: the
+// panel has kW columns and the column guards vanish.
+template <typename T, bool kFull>
+__device__ __forceinline__ void factor_diag(T (&x)[kW], int lane, int w,
+                                            T* dinv_s) {
+#pragma unroll
+  for (int c = 0; c < kW; ++c) {
+    if (kFull || c < w) {
+      const T dinv = T(1) / sqrt(__shfl_sync(0xffffffffu, x[c], c));
+      x[c] = x[c] * dinv;
+#pragma unroll
+      for (int c2 = c + 1; c2 < kW; ++c2) {
+        const T lc2 = __shfl_sync(0xffffffffu, x[c], c2);
+        const T v = x[c2] - x[c] * lc2;
+        x[c2] = ((kFull || c2 < w) && lane >= c2) ? v : x[c2];
+      }
+      if (lane == 0) dinv_s[c] = dinv;
+    }
+  }
+}
+
+// The factor of one matrix over bpm blocks (a cooperative grid of nb * bpm
+// blocks, bpm per matrix). Every block reaches every grid.sync() below the
+// same number of times. The factor in device memory is read with __ldcg
+// (through L2, past the SM's own L1), since other blocks write it.
+template <typename T>
+__global__ void __launch_bounds__(kSpreadThreads)
+cholesky_spread_kernel(const T* __restrict__ A, T* __restrict__ Lout, int n,
+                       int bpm) {
+  __shared__ T D[kW][kW + 1];        // the factored diagonal block
+  __shared__ T dinv_s[kW];
+  __shared__ T PI[kW][kTile + 1];    // panel entries of the tile's rows
+  __shared__ T PK[kW][kTile + 1];    // panel entries of the tile's columns
+
+  cg::grid_group grid = cg::this_grid();
+  const int64_t mat = blockIdx.x / bpm;
+  const int b = blockIdx.x % bpm;
+  const int64_t nn = (int64_t)n * n;
+  const T* a = A + mat * nn;
+  T* l = Lout + mat * nn;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // the lower triangle of A, zeros above the diagonal
+  for (int64_t idx = (int64_t)b * nt + tid; idx < nn;
+       idx += (int64_t)bpm * nt) {
+    const int i = (int)(idx / n);
+    const int k = (int)(idx - (int64_t)i * n);
+    l[idx] = (k <= i) ? a[idx] : T(0);
+  }
+  grid.sync();
+
+  for (int j0 = 0; j0 < n; j0 += kW) {
+    const int w = min(kW, n - j0);
+
+    // (A) the diagonal block, lane r holding row j0 + r: at step c the
+    // diagonal entry (lane c's) gives 1/sqrt, every row scales its entry
+    // c, and row r's entries c2 in (c, r] take the product with row c2's
+    if (warp == 0) {
+      T x[kW];
+      const T* src = l + (int64_t)(j0 + lane) * n + j0;
+#pragma unroll
+      for (int c = 0; c < kW; ++c)
+        x[c] = (lane < w && c <= lane) ? __ldcg(src + c) : T(0);
+      if (w == kW)
+        factor_diag<T, true>(x, lane, w, dinv_s);
+      else
+        factor_diag<T, false>(x, lane, w, dinv_s);
+#pragma unroll
+      for (int c = 0; c < kW; ++c)
+        if (lane < w && c <= lane) D[lane][c] = x[c];
+    }
+    __syncthreads();
+
+    // (A) the panel's rows below the diagonal block: row j0 + w + r on
+    // block r % bpm, thread r / bpm. Only a full panel has rows below it.
+    const int R = n - j0 - w;
+    for (int r = b + bpm * tid; r < R; r += bpm * nt) {
+      T* row = l + (int64_t)(j0 + w + r) * n + j0;
+      T x[kW];
+#pragma unroll
+      for (int c = 0; c < kW; ++c) x[c] = __ldcg(row + c);
+#pragma unroll
+      for (int c = 0; c < kW; ++c) {
+        x[c] = x[c] * dinv_s[c];
+#pragma unroll
+        for (int c2 = c + 1; c2 < kW; ++c2)
+          x[c2] = x[c2] - x[c] * D[c2][c];
+      }
+#pragma unroll
+      for (int c = 0; c < kW; ++c) row[c] = x[c];
+    }
+    grid.sync();
+
+    // (B) every block has read the diagonal block; block 0 of the matrix
+    // now stores its factor
+    if (b == 0) {
+      for (int idx = tid; idx < w * w; idx += nt) {
+        const int r = idx / w;
+        const int c = idx - r * w;
+        if (c <= r) l[(int64_t)(j0 + r) * n + j0 + c] = D[r][c];
+      }
+    }
+    // (B) the trailing lower triangle, rows and columns base .. n-1, in
+    // 64 x 64 tiles t = ti (ti + 1) / 2 + tk (tk <= ti) dealt over blocks;
+    // thread (tr, tc) keeps rows tr + 16 p and columns tc + 16 q
+    const int base = j0 + w;
+    const int Tn = n - base;
+    const int nti = (Tn + kTile - 1) / kTile;
+    const int ntiles = nti * (nti + 1) / 2;
+    const int tr = tid >> 4;
+    const int tc = tid & 15;
+    for (int t = b; t < ntiles; t += bpm) {
+      int ti = (int)((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
+      while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+      while (ti * (ti + 1) / 2 > t) --ti;
+      const int i0 = ti * kTile;
+      const int k0 = (t - ti * (ti + 1) / 2) * kTile;
+      T acc[4][4];
+      bool ok[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = i0 + tr + 16 * p;
+          const int k = k0 + tc + 16 * q;
+          ok[p][q] = i < Tn && k <= i;
+          acc[p][q] = ok[p][q]
+              ? __ldcg(l + (int64_t)(base + i) * n + base + k) : T(0);
+        }
+      }
+      for (int idx = tid; idx < kTile * kW; idx += nt) {
+        const int r = idx / kW;
+        const int c = idx - r * kW;
+        PI[c][r] = (c < w && i0 + r < Tn)
+            ? __ldcg(l + (int64_t)(base + i0 + r) * n + j0 + c) : T(0);
+        PK[c][r] = (c < w && k0 + r < Tn)
+            ? __ldcg(l + (int64_t)(base + k0 + r) * n + j0 + c) : T(0);
+      }
+      __syncthreads();
+      for (int c = 0; c < w; ++c) {
+        T li[4], lk[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) li[p] = PI[c][tr + 16 * p];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) lk[q] = PK[c][tc + 16 * q];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[p][q] = acc[p][q] - li[p] * lk[q];
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (ok[p][q])
+            l[(int64_t)(base + i0 + tr + 16 * p) * n + base + k0 + tc +
+              16 * q] = acc[p][q];
+        }
+      }
+      __syncthreads();
+    }
+    grid.sync();
+  }
+}
+
+// One warp's column of a backward-solve panel's diagonal block, lane r
+// holding row lo + r in x: at step s (from the bottom) lane s divides by
+// L[s][s], the quotient reaches every lane by shuffle, and the lanes above
+// subtract L[s][r] times it; dd[s * 33 + r] = L[lo + s][lo + r].
+template <typename T>
+__device__ __forceinline__ T solve_lanes(T x, const T* dd, int w, int lane) {
+  for (int s = w - 1; s >= 0; --s) {
+    const T lsr = dd[s * (kW + 1) + lane];
+    T y = (lane == s) ? x / lsr : T(0);
+    y = __shfl_sync(0xffffffffu, y, s);
+    if (lane == s) x = y;
+    if (lane < s) x = x - lsr * y;
+  }
+  return x;
+}
+
+// One thread's column of a backward-solve panel, its rows r = 0..31 in x:
+// first (prev) the solved rows y_s of the panel below, x_r -= L[s][r] y_s for
+// s from the top of that panel down, with ls[s * stride + r] = L[lo' + s][r]
+// and ys[s * kc] = y_s; then the panel's own diagonal block from the
+// bottom, x_s /= L[s][s] and x_r -= L[s][r] x_s for r < s, with
+// dd[s * 33 + r] = L[lo + s][lo + r]. Each x_r thus takes its subtractions
+// in the plain substitution's order. kFull: the panel has 32 rows.
+template <typename T, bool kFull>
+__device__ __forceinline__ void solve_column(T (&x)[kW], const T* ls,
+                                             int stride, const T* ys, int kc,
+                                             const T* dd, int w) {
+  if (ls != nullptr) {
+    for (int s = kW - 1; s >= 0; --s) {
+      const T y = ys[s * kc];
+#pragma unroll
+      for (int r = 0; r < kW; ++r)
+        x[r] = x[r] - ls[(int64_t)s * stride + r] * y;
+    }
+  }
+#pragma unroll
+  for (int s = kW - 1; s >= 0; --s) {
+    if (kFull || s < w) {
+      const T y = x[s] / dd[s * (kW + 1) + s];
+      x[s] = y;
+#pragma unroll
+      for (int r = 0; r < s; ++r) x[r] = x[r] - dd[s * (kW + 1) + r] * y;
+    }
+  }
+}
+
+// L' X = B for one matrix and kc right-hand-side columns on one cluster of
+// C blocks (grid: C * column groups by nb). Panel q (q = 0 at the bottom)
+// holds rows lo_q .. hi_q - 1, hi_q = n - 32 q, lo_q = max(hi_q - 32, 0),
+// and belongs to block q % C, which keeps it as its local panel q / C:
+// local row t = 32 (q / C) + r is row lo_q + r. Shared memory (T):
+// Xs[kc][rows + 1] (the block's rows of X), Ls[3][32][rows] (three panels' rows
+// of L at the block's rows), Ds[3][32][33] (three diagonal blocks, on their
+// owner), xs[3][32][kc] (three panels' solved rows, written by their owner
+// into every block of the cluster).
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
+                        T* __restrict__ Xm, int n, int K, int kc,
+                        int rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int xstride = rows + 1;  // odd: a warp's columns fall in other banks
+  T* Xs = reinterpret_cast<T*>(smem_raw);
+  T* Ls = Xs + (int64_t)kc * xstride;
+  T* Ds = Ls + 3 * kW * (int64_t)rows;
+  T* xs = Ds + 3 * kW * (kW + 1);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t mat = blockIdx.y;
+  const int k0 = (blockIdx.x / C) * kc;
+  const int kw = min(kc, K - k0);
+  const T* L = Lm + mat * (int64_t)n * n;
+  const T* B = Bm + mat * (int64_t)n * K + k0;
+  T* X = Xm + mat * (int64_t)n * K + k0;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int np = (n + kW - 1) / kW;
+  const int nu = rank < np ? (np - 1 - rank) / C + 1 : 0;   // local panels
+  const int nrows = kW * nu;
+
+  // local row t -> its row of the matrix, or -1 past a short top panel
+  auto row_of = [&](int t) {
+    const int hi = n - kW * (rank + C * (t / kW));
+    const int i = max(hi - kW, 0) + t % kW;
+    return i < hi ? i : -1;
+  };
+  // the first local row above panel q
+  auto first_above = [&](int q) {
+    return q >= rank ? kW * ((q - rank) / C + 1) : 0;
+  };
+  // one cp.async group: panel q's rows of L at this block's rows above it
+  // into Ls[buf] and, on the panel's owner, its diagonal block into Ds[buf]
+  // (buf = q % 3: copies run two panels ahead)
+  auto stage = [&](int q, int buf) {
+    const int hi = n - kW * q;
+    const int lo = max(hi - kW, 0);
+    const int w = hi - lo;
+    const int t0 = first_above(q);
+    const int na = nrows - t0;
+    T* dst = Ls + (int64_t)buf * kW * rows;
+    for (int idx = tid; idx < w * na; idx += nt) {
+      const int s = idx / na;
+      const int t = t0 + idx - s * na;
+      const int i = row_of(t);
+      if (i >= 0)
+        __pipeline_memcpy_async(dst + (int64_t)s * rows + t,
+                                L + (int64_t)(lo + s) * n + i, sizeof(T));
+    }
+    if (q % C == rank) {
+      T* dd = Ds + buf * kW * (kW + 1);
+      for (int idx = tid; idx < w * w; idx += nt) {
+        const int s = idx / w;
+        const int r = idx - s * w;
+        __pipeline_memcpy_async(dd + s * (kW + 1) + r,
+                                L + (int64_t)(lo + s) * n + lo + r,
+                                sizeof(T));
+      }
+    }
+    __pipeline_commit();
+  };
+
+  // this block's local rows ta .. tb-1 (all above panel q) take panel q's
+  // solved rows, in the substitution's order
+  auto update = [&](int q, int ta, int tb) {
+    const int hi = n - kW * q;
+    const int w = hi - max(hi - kW, 0);
+    const T* ls = Ls + (int64_t)(q % 3) * kW * rows;
+    const T* xq = xs + (q % 3) * kW * kc;
+    const int na = tb - ta;
+    for (int idx = tid; idx < na * kw; idx += nt) {
+      const int cc = idx / na;
+      const int t = ta + idx - cc * na;
+      if (row_of(t) < 0) continue;
+      T v = Xs[(int64_t)cc * xstride + t];
+      for (int s = w - 1; s >= 0; --s)
+        v = v - ls[(int64_t)s * rows + t] * xq[s * kc + cc];
+      Xs[(int64_t)cc * xstride + t] = v;
+    }
+  };
+
+  // panel q's owner: bring the panel's rows up to date with panel q - 1's
+  // solved rows (if prev), solve its diagonal block, then write the solved
+  // rows to X and into xs[q % 3] of every block of the cluster. A few
+  // columns take a warp each, lanes as rows, the steps chained by
+  // shuffles; many take a thread each, the panel's 32 rows in registers,
+  // so that each step's division serves one column (a warp's instructions
+  // issue once for all 32 lanes).
+  auto solve_panel = [&](int q, bool prev) {
+    const int hi = n - kW * q;
+    const int lo = max(hi - kW, 0);
+    const int w = hi - lo;
+    const T* dd = Ds + (q % 3) * kW * (kW + 1);
+    const int t0 = kW * (q / C);
+    if (kw <= nwarps) {
+      if (prev) {
+        update(q - 1, t0, t0 + kW);
+        __syncthreads();
+      }
+      if (warp < kw) {
+        T* xc = Xs + (int64_t)warp * xstride + t0;
+        const T x = solve_lanes<T>((lane < w) ? xc[lane] : T(0), dd, w,
+                                   lane);
+        if (lane < w) xc[lane] = x;
+      }
+    } else {
+      const T* ls = prev ? Ls + (int64_t)((q - 1) % 3) * kW * rows + t0
+                         : nullptr;
+      const T* ys = xs + ((q + 2) % 3) * kW * kc;    // panel q - 1's
+      for (int c = tid; c < kw; c += nt) {
+        T x[kW];
+        T* xc = Xs + (int64_t)c * xstride + t0;
+#pragma unroll
+        for (int r = 0; r < kW; ++r) x[r] = (r < w) ? xc[r] : T(0);
+        if (w == kW)
+          solve_column<T, true>(x, ls, rows, ys + c, kc, dd, w);
+        else
+          solve_column<T, false>(x, ls, rows, ys + c, kc, dd, w);
+#pragma unroll
+        for (int r = 0; r < kW; ++r)
+          if (r < w) xc[r] = x[r];
+      }
+    }
+    __syncthreads();
+    const int xo = (q % 3) * kW * kc;
+    for (int idx = tid; idx < w * kw; idx += nt) {
+      const int r = idx / kw;
+      const int c = idx - r * kw;
+      const T v = Xs[(int64_t)c * xstride + t0 + r];
+      X[(int64_t)(lo + r) * K + c] = v;
+      for (int b = 0; b < C; ++b)
+        cluster.map_shared_rank(xs, b)[xo + r * kc + c] = v;
+    }
+  };
+
+  for (int idx = tid; idx < kw * nrows; idx += nt) {
+    const int cc = idx / nrows;
+    const int t = idx - cc * nrows;
+    const int i = row_of(t);
+    if (i >= 0) Xs[(int64_t)cc * xstride + t] = B[(int64_t)i * K + cc];
+  }
+  cluster.sync();                 // every block runs: its xs may be written
+  stage(0, 0);
+  if (np > 1)
+    stage(1, 1);
+  else
+    __pipeline_commit();
+  __pipeline_wait_prior(1);
+  __syncthreads();
+  if (rank == 0) solve_panel(0, false);
+
+  // Per panel q, one cluster barrier, split: the copies for two panels
+  // ahead are issued between its arrive and its wait. After it, the owner
+  // of panel q + 1 first brings that panel's rows up to date, solves and
+  // publishes it, and only then updates its other rows: the chain from
+  // panel to panel passes one block's 32 rows, not all of them.
+  for (int q = 0; q < np; ++q) {
+    __syncthreads();              // this block is done with panel q - 1
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    if (q + 2 < np)
+      stage(q + 2, (q + 2) % 3);
+    else
+      __pipeline_commit();
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+    __pipeline_wait_prior(2);     // this thread's copies of panel q
+    __syncthreads();              // and everyone's
+    const int t0 = first_above(q);
+    if (q + 1 < np && (q + 1) % C == rank) {
+      __pipeline_wait_prior(1);   // panel q + 1's diagonal block
+      __syncthreads();
+      solve_panel(q + 1, true);   // its rows come first
+      update(q, t0 + kW, nrows);
+    } else {
+      update(q, t0, nrows);
+    }
+  }
+}
+
+// What the launchers read on every call, queried once per device (a query
+// per launch costs the host more than a small kernel takes on the card).
+constexpr int kMaxDevices = 64;
+
+struct DeviceInfo {
+  int cap, sms, coop;
+  bool ready;
+};
+
+inline cudaError_t device_info(const DeviceInfo** out) {
+  static DeviceInfo info[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = info[dev];
+  if (!d.ready) {
+    e = cudaDeviceGetAttribute(&d.cap,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&d.coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return e;
+    d.ready = true;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+// Blocks of the spread factor one SM holds at once, once per device and T.
+template <typename T>
+cudaError_t spread_per_sm(int* per_sm) {
+  static int cache[kMaxDevices];   // 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int v = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &v, cholesky_spread_kernel<T>, kSpreadThreads, 0);
+    if (e != cudaSuccess) return e;
+    cache[dev] = v > 0 ? v : -1;
+  }
+  *per_sm = cache[dev] > 0 ? cache[dev] : 0;
+  return cudaSuccess;
+}
+
+// Blocks per matrix of the spread factor: the SMs the batch leaves, at most
+// the first panel's trailing tiles; 1 means the one-block kernel.
+inline int spread_blocks(long long nb, int n, int sms) {
+  const int tn = n - kW;
+  const int nti = (tn + kTile - 1) / kTile;
+  const int most = nti * (nti + 1) / 2;
+  const long long free = sms / nb;
+  return tn <= 0 ? 1 : (int)(free < most ? free : most);
+}
+
 template <typename T>
 int launch_cholesky(const T* A, T* L, long long nb, int n, void* stream) {
-  int dev = 0, cap = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
+  const DeviceInfo* d = nullptr;
+  cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return (int)e;
+  const int cap = d->cap, sms = d->sms, coop = d->coop;
+  int bpm = spread_blocks(nb, n, sms);
+  if (coop && bpm >= 2) {
+    int per_sm = 0;
+    e = spread_per_sm<T>(&per_sm);
+    if (e != cudaSuccess) return (int)e;
+    // a cooperative grid must be resident at once
+    const long long most = (long long)per_sm * sms / nb;
+    bpm = (int)(bpm < most ? bpm : most);
+  }
+  if (coop && bpm >= 2) {
+    int nn = n, b = bpm;
+    void* args[] = {(void*)&A, (void*)&L, (void*)&nn, (void*)&b};
+    e = cudaLaunchCooperativeKernel(
+        (const void*)cholesky_spread_kernel<T>, dim3((unsigned)(nb * bpm)),
+        dim3(kSpreadThreads), args, 0, (cudaStream_t)stream);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
   const size_t col = (size_t)n * sizeof(T);
   // the dynamic panel, beside the kernel's few static bytes
   int W = cap > 64 ? (int)((size_t)(cap - 64) / col) : 0;
@@ -300,6 +842,123 @@ int launch_solve(const T* L, const T* B, T* X, long long nb, int n, int K,
   return (int)cudaGetLastError();
 }
 
+// The backward solve's cluster plan: kc columns a cluster, rows per block,
+// threads and shared memory, for `per` clusters a matrix.
+struct SolvePlan {
+  int kc, rows, threads;
+  size_t smem;
+};
+
+template <typename T>
+SolvePlan solve_plan(int n, int K, int C, long long per) {
+  SolvePlan p;
+  const long long kc = (K + per - 1) / per;
+  p.kc = (int)(kc < 64 ? kc : 64);   // at most two columns a warp
+  p.rows = kW * ((n + kW * C - 1) / (kW * C));
+  p.smem = ((size_t)p.kc * (p.rows + 1) + 3 * (size_t)kW * p.rows +
+            3 * kW * (kW + 1) + 3 * (size_t)kW * p.kc) * sizeof(T);
+  // a warp a column up to 16 columns, else about 8 update pairs a thread
+  const int t = p.kc <= 16 ? 32 * p.kc : (8 * p.kc + 31) / 32 * 32;
+  p.threads = t < 128 ? 128 : (t > kClusterThreads ? kClusterThreads : t);
+  return p;
+}
+
+// The cluster kernel may use all of a block's shared memory; set once per
+// device and T.
+template <typename T>
+cudaError_t allow_cluster_smem(int cap) {
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || done[dev]) return e;
+  e = cudaFuncSetAttribute(solve_lt_cluster_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+  done[dev] = e == cudaSuccess;
+  return e;
+}
+
+// The solve clusters the card holds at once for a launch shape, remembered
+// per (device, cluster size, threads, shared memory): a few shapes recur.
+template <typename T>
+cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit) {
+  struct Entry {
+    int dev, C, threads, fit;
+    size_t smem;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int threads = (int)cfg->blockDim.x;
+  for (int i = 0; i < used; ++i) {
+    const Entry& c = cache[i];
+    if (c.dev == dev && c.C == C && c.threads == threads &&
+        c.smem == cfg->dynamicSmemBytes) {
+      *fit = c.fit;
+      return cudaSuccess;
+    }
+  }
+  e = cudaOccupancyMaxActiveClusters(fit, solve_lt_cluster_kernel<T>, cfg);
+  if (e == cudaSuccess && used < kEntries)
+    cache[used++] = Entry{dev, C, threads, *fit, cfg->dynamicSmemBytes};
+  return e;
+}
+
+// L' X = B: on clusters while the card holds at least one cluster per
+// matrix at once (and a block's rows fit in shared memory), else one block
+// per matrix and block of columns. Each matrix gets as many clusters as
+// the card holds at once, each a block of kc columns.
+template <typename T>
+int launch_solve_t(const T* L, const T* B, T* X, long long nb, int n, int K,
+                   void* stream) {
+  const DeviceInfo* d = nullptr;
+  cudaError_t e = device_info(&d);
+  if (e != cudaSuccess) return (int)e;
+  const int cap = d->cap, sms = d->sms;
+  const int np = (n + kW - 1) / kW;
+  const int C = np < kCluster ? np : kCluster;
+  long long per = sms / C / nb;                  // clusters per matrix
+  if (C < 2 || per < 1) return launch_solve<T, false>(L, B, X, nb, n, K,
+                                                      stream);
+  SolvePlan p = solve_plan<T>(n, K, C, per);
+  if (p.smem > (size_t)cap)
+    return launch_solve<T, false>(L, B, X, nb, n, K, stream);
+  e = allow_cluster_smem<T>(cap);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.blockDim = dim3((unsigned)p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.gridDim = dim3((unsigned)(C * per), (unsigned)nb);
+  // the clusters the card holds at once at this size (the GPCs, not the
+  // SM count, decide): fewer clusters, each with more columns
+  int fit = 0;
+  e = clusters_fit<T>(&cfg, C, &fit);
+  if (e != cudaSuccess) return (int)e;
+  if (fit / nb < per) {
+    per = fit / nb;
+    if (per < 1) return launch_solve<T, false>(L, B, X, nb, n, K, stream);
+    p = solve_plan<T>(n, K, C, per);
+    if (p.smem > (size_t)cap)
+      return launch_solve<T, false>(L, B, X, nb, n, K, stream);
+    cfg.blockDim = dim3((unsigned)p.threads);
+    cfg.dynamicSmemBytes = p.smem;
+  }
+  cfg.gridDim = dim3((unsigned)(C * ((K + p.kc - 1) / p.kc)), (unsigned)nb);
+  e = cudaLaunchKernelEx(&cfg, solve_lt_cluster_kernel<T>, L, B, X, n, K,
+                         p.kc, p.rows);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -326,12 +985,12 @@ int solve_lower_f64(const double* L, const double* B, double* X,
 
 int solve_lower_t_f32(const float* L, const float* B, float* X, long long nb,
                       int n, int K, void* stream) {
-  return launch_solve<float, false>(L, B, X, nb, n, K, stream);
+  return launch_solve_t<float>(L, B, X, nb, n, K, stream);
 }
 
 int solve_lower_t_f64(const double* L, const double* B, double* X,
                       long long nb, int n, int K, void* stream) {
-  return launch_solve<double, false>(L, B, X, nb, n, K, stream);
+  return launch_solve_t<double>(L, B, X, nb, n, K, stream);
 }
 
 int chol_max_shared_bytes() {

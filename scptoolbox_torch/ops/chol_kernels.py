@@ -21,7 +21,11 @@ Cholesky ladder (ops/ipm.py `_SchurKKT`). Contract, per matrix:
 On a CUDA tensor a wrapper launches its CUDA C++ kernel
 (scptoolbox_torch/csrc/chol_kernels.cu, built with nvcc for sm_90a at first
 use, see ops/cuda_lib.py) or raises; on a CPU tensor it runs the plain
-version. The kernels take contiguous operands: a transposed view (the
+version. The launcher picks the kernel's design from the batch: one thread
+block per matrix when the batch fills the card, and for a few matrices the
+factor spread over a cooperative grid and the backward solve over thread
+block clusters (the source's note says how); `solve_lower` keeps one block
+per matrix. The kernels take contiguous operands: a transposed view (the
 Schur KKT's A_E') is copied by `.contiguous()` first. The plain versions do
 the kernels' operations in the same order, so on the card the two agree bit
 for bit. Each wrapper counts its kernel launches in `<wrapper>.launches`.

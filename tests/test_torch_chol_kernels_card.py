@@ -61,6 +61,47 @@ def test_kernels_equal_plain_on_card(card, nb, n, Ks, dtype):
                                   "solve_lower_t": len(Ks) + 1}
 
 
+# one matrix (and a few): the factor spread over a cooperative grid and the
+# backward solve over clusters, around the panel width (31, 32, 33) and at
+# the serial programs' widths, with a short last panel (541, 877)
+ONE = [(1, 31), (1, 32), (1, 33), (1, 541), (1, 876), (1, 877), (3, 314)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb,n", ONE)
+def test_small_batches_equal_plain_on_card(card, nb, n, dtype):
+    H = _spd(nb, n, dtype, card, seed=n)
+    L = ck.cholesky(H)
+    assert torch.equal(L, ck.cholesky_plain(H))
+    for K in (1, 2, 566):
+        B = torch.randn(nb, n, K, dtype=dtype, device=card)
+        assert torch.equal(ck.solve_lower_t(L, B),
+                           ck.solve_lower_t_plain(L, B)), K
+        assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
+
+
+@pytest.mark.cuda
+def test_one_matrix_empty_cases(card):
+    assert ck.cholesky(torch.zeros(1, 0, 0, dtype=torch.float64,
+                                   device=card)).shape == (1, 0, 0)
+    L = ck.cholesky(_spd(1, 541, torch.float64, card))
+    B = torch.zeros(1, 541, 0, dtype=torch.float64, device=card)
+    assert ck.solve_lower_t(L, B).shape == (1, 541, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bad", [(40, 17), (876, 500)])
+def test_non_spd_gives_nan_on_one_matrix(card, n, bad):
+    H = _spd(1, n, torch.float64, card)
+    H[0, bad, bad] = -1e6
+    L = ck.cholesky(H)
+    torch.cuda.synchronize()
+    d = torch.diagonal(L[0])
+    assert torch.isnan(d[bad]) and torch.isfinite(d[:bad]).all()
+    assert torch.equal(torch.isnan(L), torch.isnan(ck.cholesky_plain(H)))
+
+
 @pytest.mark.cuda
 def test_non_spd_gives_nan_not_an_error(card):
     H = _spd(2, 40, torch.float64, card)
