@@ -100,6 +100,27 @@ def _time_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def _device_ms(torch, fn, reps):
+    """ms per launch on the device alone: reps launches captured in one CUDA
+    graph and replayed, so that the host's time per wrapper call, which
+    _time_ms includes, drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def _factor_work(nb, s, isz):
     flops = nb * (2.0 / 3.0 * s ** 3 + 0.5 * s * s)
     nbytes = nb * (2 * s * s * isz + 4 * s)
@@ -235,7 +256,9 @@ def phase_kernels(torch, lk, ck, gk, shapes_by_path):
     Launches are grouped by (kernel, dtype, n, K); each group is checked at
     its smallest and largest block count nb (identical LU pivot records,
     results within a relative 1e-4 in float32 and 1e-10 in float64) and
-    timed at the largest beside its bound and the torch.linalg call.
+    timed at the largest beside its bound and the torch.linalg call
+    (kernel_ms through the wrapper, host time included, as every earlier
+    record; device_ms on the device alone, from a CUDA graph).
     gj_inverse, on no path, is checked and timed the same way at the
     Starship phases' lu_factor shapes (the path "kernels"); its launches
     are the ones this phase makes."""
@@ -271,6 +294,7 @@ def phase_kernels(torch, lk, ck, gk, shapes_by_path):
                        nb_checked=sorted({min(nbs), max(nbs)}),
                        launches=launches, max_abs_err=err,
                        kernel_ms=_time_ms(torch, run, 20),
+                       device_ms=_device_ms(torch, run, 20),
                        plain_ms=_time_ms(torch, plain, 2),
                        library_ms=_time_ms(torch, lib, 20),
                        bound_ms=bound_ms, bound_by=bound_by, bound_nb=nb)
@@ -659,7 +683,7 @@ REPLACES = {"lu_factor": "scptoolbox_tpu/ops/pallas_kernels.py:373",
             "solve_lower_t": "scptoolbox_tpu/ops/pallas_kernels.py:154",
             "gj_inverse": "scptoolbox_tpu/ops/pallas_kernels.py:252"}
 SOURCES = {"lu_factor": "scptoolbox_torch/csrc/lu_kernels.cu",
-           "lu_solve": "scptoolbox_torch/csrc/lu_kernels.cu",
+           "lu_solve": "scptoolbox_torch/csrc/panel_solve.cuh",
            "cholesky": "scptoolbox_torch/csrc/chol_kernels.cu",
            "solve_lower": "scptoolbox_torch/csrc/chol_kernels.cu",
            "solve_lower_t": "scptoolbox_torch/csrc/chol_kernels.cu",

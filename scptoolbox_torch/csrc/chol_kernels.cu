@@ -25,13 +25,16 @@
 // are worked on in device memory, where the 50 MB L2 cache holds them, in
 // panels of up to 32 columns (rows) kept in shared memory or registers.
 //
-// Two designs each for the factor and the backward solve, chosen by the
-// launcher from the batch (solve_lower always takes tri_solve_kernel):
-// * One thread block owns a matrix (cholesky_kernel), or a matrix and a
-//   block of right-hand-side columns (tri_solve_kernel), when the batch
-//   alone fills the card: more than half as many matrices as SMs for the
-//   factor; for the backward solve, more matrices than the card holds
-//   clusters of 8 blocks at once (16 on an H100).
+// The launchers choose the design from the batch:
+// * When the batch alone fills the card, one thread block owns a matrix
+//   (cholesky_kernel: more than half as many matrices as SMs), or a matrix
+//   and a block of right-hand-side columns. For the solves that is the
+//   case with more matrices than the card holds clusters of 8 blocks at
+//   once (16 on an H100). solve_lower then takes the panel design of
+//   panel_solve.cuh (its panels of L staged in shared memory, coalesced,
+//   one panel ahead; register tiles), or tri_solve_kernel (L read in
+//   device memory) where two panels of n rows do not fit in shared memory;
+//   so does solve_lower_t, its panels' rows of L copied transposed.
 // * Otherwise (the serial programs factor one matrix at a time) one matrix
 //   is spread over many SMs:
 //   - cholesky_spread_kernel runs as a cooperative persistent grid of up to
@@ -49,23 +52,27 @@
 //     in all: 57 at n = 876. What remains is the diagonal block's chain of
 //     32 dependent sqrt, division and shuffle steps per panel, which no
 //     number of SMs shortens.
-//   - solve_lt_cluster_kernel runs thread-block clusters of up to 8 blocks,
-//     one or more per matrix, each on a block of right-hand-side columns.
-//     The 32-row panels are dealt round-robin over a cluster's blocks, and
-//     each block keeps its panels' rows of X in shared memory. Per panel,
-//     from the bottom: its owner solves the diagonal block (a thread per
-//     column, the panel's 32 rows in its registers, so that each step's
-//     division serves one column and no step waits on a shuffle) and
+//   - solve_cluster_kernel runs both solves on thread-block clusters of up
+//     to 8 blocks, one or more per matrix, each on a block of right-hand-
+//     side columns. The 32-row panels are dealt round-robin over a
+//     cluster's blocks, and each block keeps its panels' rows of X in
+//     shared memory. Per panel, in the substitution's order (from the top
+//     for solve_lower, from the bottom for solve_lower_t): its owner
+//     solves the diagonal block (a warp per column for a few columns; for
+//     many a thread per column, the panel's 32 rows in its registers, so
+//     that each step's division serves one column) and
 //     writes the solved rows into every block's shared memory (distributed
 //     shared memory); one cluster barrier; every block applies them to its
-//     own rows above the panel. The owner of the next panel brings that
+//     own rows past the panel. The owner of the next panel brings that
 //     panel's rows up to date first, in the same registers, and solves it
 //     before it updates its other rows, so that the chain from panel to
-//     panel passes 32 rows of one block. The diagonal block and
-//     each block's part of the panel's rows of L (rows lo..lo+w-1,
-//     contiguous along its own columns) are copied into shared memory with
-//     cp.async two panels ahead, issued between the barrier's arrive and its
-//     wait; L does not change, so the copies need no barrier of their own.
+//     panel passes 32 rows of one block. The diagonal block and each
+//     block's coefficients of the panel (solve_lower: segments of its own
+//     rows of L, columns lo..lo+w-1; solve_lower_t: rows lo..lo+w-1 of L
+//     at its own columns; contiguous either way) are copied into shared
+//     memory with cp.async two panels ahead, issued between the barrier's
+//     arrive and its wait; L does not change, so the copies need no
+//     barrier of their own.
 //
 // Bit for bit. Each entry takes its updates in the plain version's order:
 // in the factor, every trailing entry takes the panels' products in column
@@ -82,9 +89,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "panel_solve.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using panel::device_info;
+using panel::DeviceInfo;
+using panel::kMaxDevices;
 
 constexpr int kFactorThreads = 512;
 constexpr int kMaxPanel = 32;
@@ -486,71 +499,121 @@ cholesky_spread_kernel(const T* __restrict__ A, T* __restrict__ Lout, int n,
   }
 }
 
-// One warp's column of a backward-solve panel's diagonal block, lane r
-// holding row lo + r in x: at step s (from the bottom) lane s divides by
-// L[s][s], the quotient reaches every lane by shuffle, and the lanes above
-// subtract L[s][r] times it; dd[s * 33 + r] = L[lo + s][lo + r].
-template <typename T>
+// One warp's column of a cluster-solve panel's diagonal block, lane r
+// holding row lo + r in x, with dd[s * 33 + r] the coefficient of x_s in
+// row r (backward: L[lo + s][lo + r]; forward: L[lo + r][lo + s]). At each
+// step s (backward from the bottom, forward from the top) lane s divides by
+// L[s][s], the quotient reaches every lane by shuffle, and the lanes still
+// to solve subtract their coefficient times it. A full panel goes four rows
+// a round: their values reach every lane by four independent shuffles,
+// every lane solves the four among themselves (the operations of the rows'
+// own lanes, in their order), and the rows past them take the four updates
+// in order.
+template <typename T, bool kFwd>
 __device__ __forceinline__ T solve_lanes(T x, const T* dd, int w, int lane) {
-  for (int s = w - 1; s >= 0; --s) {
-    const T lsr = dd[s * (kW + 1) + lane];
+  constexpr int G = 4;
+  constexpr int S = kW + 1;
+  if (w == kW) {
+#pragma unroll
+    for (int g = 0; g < kW; g += G) {
+      const int t0 = kFwd ? g : kW - G - g;
+      T v[G], y[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) v[j] = __shfl_sync(0xffffffffu, x, t0 + j);
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) {
+        const int j = kFwd ? jj : G - 1 - jj;
+        T u = v[j];
+#pragma unroll
+        for (int kk = 0; kk < jj; ++kk) {
+          const int k = kFwd ? kk : G - 1 - kk;
+          u = u - dd[(t0 + k) * S + t0 + j] * y[k];
+        }
+        y[j] = u / dd[(t0 + j) * S + t0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (lane == t0 + j) x = y[j];
+      if (kFwd ? lane >= t0 + G : lane < t0) {
+#pragma unroll
+        for (int kk = 0; kk < G; ++kk) {
+          const int k = kFwd ? kk : G - 1 - kk;
+          x = x - dd[(t0 + k) * S + lane] * y[k];
+        }
+      }
+    }
+    return x;
+  }
+  for (int k = 0; k < w; ++k) {
+    const int s = kFwd ? k : w - 1 - k;
+    const T lsr = dd[s * S + lane];
     T y = (lane == s) ? x / lsr : T(0);
     y = __shfl_sync(0xffffffffu, y, s);
     if (lane == s) x = y;
-    if (lane < s) x = x - lsr * y;
+    if (kFwd ? lane > s : lane < s) x = x - lsr * y;
   }
   return x;
 }
 
-// One thread's column of a backward-solve panel, its rows r = 0..31 in x:
-// first (prev) the solved rows y_s of the panel below, x_r -= L[s][r] y_s for
-// s from the top of that panel down, with ls[s * stride + r] = L[lo' + s][r]
-// and ys[s * kc] = y_s; then the panel's own diagonal block from the
-// bottom, x_s /= L[s][s] and x_r -= L[s][r] x_s for r < s, with
-// dd[s * 33 + r] = L[lo + s][lo + r]. Each x_r thus takes its subtractions
-// in the plain substitution's order. kFull: the panel has 32 rows.
-template <typename T, bool kFull>
+// One thread's column of a cluster-solve panel, its rows r = 0..31 in x:
+// first (if ls) the solved rows y_s of the panel before it, x_r -= c_sr y_s
+// in the substitution's order, with c_sr = ls[s * ss + r * rs] and
+// ys[s * kc] = y_s; then the panel's own diagonal block, x_s /= L[s][s]
+// and x_r -= dd[s * 33 + r] x_s for the rows r still to solve. Each x_r
+// thus takes its subtractions in the plain substitution's order. kFull:
+// the panel has 32 rows.
+template <typename T, bool kFwd, bool kFull>
 __device__ __forceinline__ void solve_column(T (&x)[kW], const T* ls,
-                                             int stride, const T* ys, int kc,
-                                             const T* dd, int w) {
+                                             int ss, int rs, const T* ys,
+                                             int kc, const T* dd, int w) {
   if (ls != nullptr) {
-    for (int s = kW - 1; s >= 0; --s) {
+    for (int k = 0; k < kW; ++k) {
+      const int s = kFwd ? k : kW - 1 - k;
       const T y = ys[s * kc];
 #pragma unroll
       for (int r = 0; r < kW; ++r)
-        x[r] = x[r] - ls[(int64_t)s * stride + r] * y;
+        x[r] = x[r] - ls[(int64_t)s * ss + r * rs] * y;
     }
   }
 #pragma unroll
-  for (int s = kW - 1; s >= 0; --s) {
+  for (int k = 0; k < kW; ++k) {
+    const int s = kFwd ? k : kW - 1 - k;
     if (kFull || s < w) {
       const T y = x[s] / dd[s * (kW + 1) + s];
       x[s] = y;
 #pragma unroll
-      for (int r = 0; r < s; ++r) x[r] = x[r] - dd[s * (kW + 1) + r] * y;
+      for (int r = 0; r < kW; ++r) {
+        if (kFwd ? r > s : r < s) x[r] = x[r] - dd[s * (kW + 1) + r] * y;
+      }
     }
   }
 }
 
-// L' X = B for one matrix and kc right-hand-side columns on one cluster of
-// C blocks (grid: C * column groups by nb). Panel q (q = 0 at the bottom)
-// holds rows lo_q .. hi_q - 1, hi_q = n - 32 q, lo_q = max(hi_q - 32, 0),
-// and belongs to block q % C, which keeps it as its local panel q / C:
-// local row t = 32 (q / C) + r is row lo_q + r. Shared memory (T):
-// Xs[kc][rows + 1] (the block's rows of X), Ls[3][32][rows] (three panels' rows
-// of L at the block's rows), Ds[3][32][33] (three diagonal blocks, on their
-// owner), xs[3][32][kc] (three panels' solved rows, written by their owner
-// into every block of the cluster).
-template <typename T>
+// L Y = B (kFwd) or L' X = B for one matrix and kc right-hand-side columns
+// on one cluster of C blocks (grid: C * column groups by nb). Panel q is
+// the q-th in the order of the substitution: forward rows lo_q = 32 q ..
+// hi_q - 1, hi_q = min(lo_q + 32, n); backward hi_q = n - 32 q, lo_q =
+// max(hi_q - 32, 0). It belongs to block q % C, which keeps it as its local
+// panel q / C: local row t = 32 (q / C) + r is row lo_q + r. Shared memory
+// (T): Xs[kc][rows + 1] (the block's rows of X), Ls[3] (three panels'
+// coefficients at the block's rows: backward [32][rows], c_st =
+// L[lo + s][row t]; forward [rows][33], c_st = L[row t][lo + s]),
+// Ds[3][32][33] (three diagonal blocks, on their owner), xs[3][32][kc]
+// (three panels' solved rows, written by their owner into every block of
+// the cluster).
+template <typename T, bool kFwd>
 __global__ void __launch_bounds__(kClusterThreads)
-solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
-                        T* __restrict__ Xm, int n, int K, int kc,
-                        int rows) {
+solve_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
+                     T* __restrict__ Xm, int n, int K, int kc, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int xstride = rows + 1;  // odd: a warp's columns fall in other banks
+  // a coefficient c_st of a staged panel: Ls[buf][s * ss + t * ts]
+  const int ss = kFwd ? 1 : rows;
+  const int ts = kFwd ? kW + 1 : 1;
+  const int64_t lsz = (int64_t)rows * (kFwd ? kW + 1 : kW);
   T* Xs = reinterpret_cast<T*>(smem_raw);
   T* Ls = Xs + (int64_t)kc * xstride;
-  T* Ds = Ls + 3 * kW * (int64_t)rows;
+  T* Ds = Ls + 3 * lsz;
   T* xs = Ds + 3 * kW * (kW + 1);
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -571,53 +634,70 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
   const int nu = rank < np ? (np - 1 - rank) / C + 1 : 0;   // local panels
   const int nrows = kW * nu;
 
-  // local row t -> its row of the matrix, or -1 past a short top panel
+  // panel q's rows lo .. hi - 1
+  auto bounds = [&](int q, int* lo, int* hi) {
+    if (kFwd) {
+      *lo = kW * q;
+      *hi = min(*lo + kW, n);
+    } else {
+      *hi = n - kW * q;
+      *lo = max(*hi - kW, 0);
+    }
+  };
+  // local row t -> its row of the matrix, or -1 past a short last panel
   auto row_of = [&](int t) {
-    const int hi = n - kW * (rank + C * (t / kW));
-    const int i = max(hi - kW, 0) + t % kW;
+    int lo, hi;
+    bounds(rank + C * (t / kW), &lo, &hi);
+    const int i = lo + t % kW;
     return i < hi ? i : -1;
   };
-  // the first local row above panel q
+  // the first local row past panel q (in the substitution's order)
   auto first_above = [&](int q) {
     return q >= rank ? kW * ((q - rank) / C + 1) : 0;
   };
-  // one cp.async group: panel q's rows of L at this block's rows above it
+  // one cp.async group: panel q's coefficients at this block's rows past it
   // into Ls[buf] and, on the panel's owner, its diagonal block into Ds[buf]
-  // (buf = q % 3: copies run two panels ahead)
+  // (buf = q % 3: copies run two panels ahead); each copy reads along a row
+  // of L
   auto stage = [&](int q, int buf) {
-    const int hi = n - kW * q;
-    const int lo = max(hi - kW, 0);
+    int lo, hi;
+    bounds(q, &lo, &hi);
     const int w = hi - lo;
     const int t0 = first_above(q);
     const int na = nrows - t0;
-    T* dst = Ls + (int64_t)buf * kW * rows;
+    T* dst = Ls + buf * lsz;
     for (int idx = tid; idx < w * na; idx += nt) {
-      const int s = idx / na;
-      const int t = t0 + idx - s * na;
+      const int a = idx / (kFwd ? w : na);
+      const int b = idx - a * (kFwd ? w : na);
+      const int s = kFwd ? b : a;
+      const int t = t0 + (kFwd ? a : b);
       const int i = row_of(t);
       if (i >= 0)
-        __pipeline_memcpy_async(dst + (int64_t)s * rows + t,
-                                L + (int64_t)(lo + s) * n + i, sizeof(T));
+        __pipeline_memcpy_async(
+            dst + (int64_t)s * ss + (int64_t)t * ts,
+            kFwd ? L + (int64_t)i * n + lo + s : L + (int64_t)(lo + s) * n + i,
+            sizeof(T));
     }
     if (q % C == rank) {
       T* dd = Ds + buf * kW * (kW + 1);
       for (int idx = tid; idx < w * w; idx += nt) {
-        const int s = idx / w;
-        const int r = idx - s * w;
-        __pipeline_memcpy_async(dd + s * (kW + 1) + r,
-                                L + (int64_t)(lo + s) * n + lo + r,
-                                sizeof(T));
+        const int a = idx / w;
+        const int b = idx - a * w;   // along a row of L: dd[s][r] = c_sr
+        __pipeline_memcpy_async(
+            kFwd ? dd + b * (kW + 1) + a : dd + a * (kW + 1) + b,
+            L + (int64_t)(lo + a) * n + lo + b, sizeof(T));
       }
     }
     __pipeline_commit();
   };
 
-  // this block's local rows ta .. tb-1 (all above panel q) take panel q's
+  // this block's local rows ta .. tb-1 (all past panel q) take panel q's
   // solved rows, in the substitution's order
   auto update = [&](int q, int ta, int tb) {
-    const int hi = n - kW * q;
-    const int w = hi - max(hi - kW, 0);
-    const T* ls = Ls + (int64_t)(q % 3) * kW * rows;
+    int lo, hi;
+    bounds(q, &lo, &hi);
+    const int w = hi - lo;
+    const T* ls = Ls + (q % 3) * lsz;
     const T* xq = xs + (q % 3) * kW * kc;
     const int na = tb - ta;
     for (int idx = tid; idx < na * kw; idx += nt) {
@@ -625,8 +705,10 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
       const int t = ta + idx - cc * na;
       if (row_of(t) < 0) continue;
       T v = Xs[(int64_t)cc * xstride + t];
-      for (int s = w - 1; s >= 0; --s)
-        v = v - ls[(int64_t)s * rows + t] * xq[s * kc + cc];
+      for (int k = 0; k < w; ++k) {
+        const int s = kFwd ? k : w - 1 - k;
+        v = v - ls[(int64_t)s * ss + (int64_t)t * ts] * xq[s * kc + cc];
+      }
       Xs[(int64_t)cc * xstride + t] = v;
     }
   };
@@ -639,8 +721,8 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
   // so that each step's division serves one column (a warp's instructions
   // issue once for all 32 lanes).
   auto solve_panel = [&](int q, bool prev) {
-    const int hi = n - kW * q;
-    const int lo = max(hi - kW, 0);
+    int lo, hi;
+    bounds(q, &lo, &hi);
     const int w = hi - lo;
     const T* dd = Ds + (q % 3) * kW * (kW + 1);
     const int t0 = kW * (q / C);
@@ -651,12 +733,12 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
       }
       if (warp < kw) {
         T* xc = Xs + (int64_t)warp * xstride + t0;
-        const T x = solve_lanes<T>((lane < w) ? xc[lane] : T(0), dd, w,
-                                   lane);
+        const T x = solve_lanes<T, kFwd>((lane < w) ? xc[lane] : T(0), dd, w,
+                                         lane);
         if (lane < w) xc[lane] = x;
       }
     } else {
-      const T* ls = prev ? Ls + (int64_t)((q - 1) % 3) * kW * rows + t0
+      const T* ls = prev ? Ls + ((q - 1) % 3) * lsz + (int64_t)t0 * ts
                          : nullptr;
       const T* ys = xs + ((q + 2) % 3) * kW * kc;    // panel q - 1's
       for (int c = tid; c < kw; c += nt) {
@@ -665,9 +747,9 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
 #pragma unroll
         for (int r = 0; r < kW; ++r) x[r] = (r < w) ? xc[r] : T(0);
         if (w == kW)
-          solve_column<T, true>(x, ls, rows, ys + c, kc, dd, w);
+          solve_column<T, kFwd, true>(x, ls, ss, ts, ys + c, kc, dd, w);
         else
-          solve_column<T, false>(x, ls, rows, ys + c, kc, dd, w);
+          solve_column<T, kFwd, false>(x, ls, ss, ts, ys + c, kc, dd, w);
 #pragma unroll
         for (int r = 0; r < kW; ++r)
           if (r < w) xc[r] = x[r];
@@ -726,36 +808,6 @@ solve_lt_cluster_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
       update(q, t0, nrows);
     }
   }
-}
-
-// What the launchers read on every call, queried once per device (a query
-// per launch costs the host more than a small kernel takes on the card).
-constexpr int kMaxDevices = 64;
-
-struct DeviceInfo {
-  int cap, sms, coop;
-  bool ready;
-};
-
-inline cudaError_t device_info(const DeviceInfo** out) {
-  static DeviceInfo info[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  DeviceInfo& d = info[dev];
-  if (!d.ready) {
-    e = cudaDeviceGetAttribute(&d.cap,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&d.coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return e;
-    d.ready = true;
-  }
-  *out = &d;
-  return cudaSuccess;
 }
 
 // Blocks of the spread factor one SM holds at once, once per device and T.
@@ -832,9 +884,11 @@ inline int solve_cols(long long nb, int K) {
   return kb;
 }
 
+// One block per matrix and block of columns, L read in device memory: the
+// design for batches whose panels do not fit in shared memory.
 template <typename T, bool kForward>
-int launch_solve(const T* L, const T* B, T* X, long long nb, int n, int K,
-                 void* stream) {
+int launch_rows(const T* L, const T* B, T* X, long long nb, int n, int K,
+                void* stream) {
   const int kb = solve_cols(nb, K);
   dim3 grid((unsigned)nb, (unsigned)((K + kb - 1) / kb));
   tri_solve_kernel<T, kForward><<<grid, kSolveThreads, 0,
@@ -842,21 +896,22 @@ int launch_solve(const T* L, const T* B, T* X, long long nb, int n, int K,
   return (int)cudaGetLastError();
 }
 
-// The backward solve's cluster plan: kc columns a cluster, rows per block,
-// threads and shared memory, for `per` clusters a matrix.
+// The cluster solve's plan: kc columns a cluster, rows per block, threads
+// and shared memory, for `per` clusters a matrix.
 struct SolvePlan {
   int kc, rows, threads;
   size_t smem;
 };
 
 template <typename T>
-SolvePlan solve_plan(int n, int K, int C, long long per) {
+SolvePlan solve_plan(bool fwd, int n, int K, int C, long long per) {
   SolvePlan p;
   const long long kc = (K + per - 1) / per;
   p.kc = (int)(kc < 64 ? kc : 64);   // at most two columns a warp
   p.rows = kW * ((n + kW * C - 1) / (kW * C));
-  p.smem = ((size_t)p.kc * (p.rows + 1) + 3 * (size_t)kW * p.rows +
-            3 * kW * (kW + 1) + 3 * (size_t)kW * p.kc) * sizeof(T);
+  const size_t ls = (size_t)(fwd ? kW + 1 : kW) * p.rows;
+  p.smem = ((size_t)p.kc * (p.rows + 1) + 3 * ls + 3 * kW * (kW + 1) +
+            3 * (size_t)kW * p.kc) * sizeof(T);
   // a warp a column up to 16 columns, else about 8 update pairs a thread
   const int t = p.kc <= 16 ? 32 * p.kc : (8 * p.kc + 31) / 32 * 32;
   p.threads = t < 128 ? 128 : (t > kClusterThreads ? kClusterThreads : t);
@@ -864,23 +919,26 @@ SolvePlan solve_plan(int n, int K, int C, long long per) {
 }
 
 // The cluster kernel may use all of a block's shared memory; set once per
-// device and T.
-template <typename T>
+// device and kernel (T, direction).
+template <typename T, bool kFwd>
 cudaError_t allow_cluster_smem(int cap) {
   static bool done[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || done[dev]) return e;
-  e = cudaFuncSetAttribute(solve_lt_cluster_kernel<T>,
+  e = cudaFuncSetAttribute(solve_cluster_kernel<T, kFwd>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
   done[dev] = e == cudaSuccess;
   return e;
 }
 
 // The solve clusters the card holds at once for a launch shape, remembered
-// per (device, cluster size, threads, shared memory): a few shapes recur.
-template <typename T>
-cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit) {
+// per kernel (T, direction: each instance has its own cache) and per
+// (device, cluster size, threads, shared memory): a few shapes recur.
+// cached = false asks the card again and leaves the cache as it is.
+template <typename T, bool kFwd>
+cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit,
+                         bool cached = true) {
   struct Entry {
     int dev, C, threads, fit;
     size_t smem;
@@ -892,7 +950,7 @@ cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const int threads = (int)cfg->blockDim.x;
-  for (int i = 0; i < used; ++i) {
+  for (int i = 0; cached && i < used; ++i) {
     const Entry& c = cache[i];
     if (c.dev == dev && c.C == C && c.threads == threads &&
         c.smem == cfg->dynamicSmemBytes) {
@@ -900,33 +958,36 @@ cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit) {
       return cudaSuccess;
     }
   }
-  e = cudaOccupancyMaxActiveClusters(fit, solve_lt_cluster_kernel<T>, cfg);
-  if (e == cudaSuccess && used < kEntries)
+  e = cudaOccupancyMaxActiveClusters(fit, solve_cluster_kernel<T, kFwd>,
+                                     cfg);
+  if (e == cudaSuccess && cached && used < kEntries)
     cache[used++] = Entry{dev, C, threads, *fit, cfg->dynamicSmemBytes};
   return e;
 }
 
-// L' X = B: on clusters while the card holds at least one cluster per
-// matrix at once (and a block's rows fit in shared memory), else one block
-// per matrix and block of columns. Each matrix gets as many clusters as
-// the card holds at once, each a block of kc columns.
-template <typename T>
-int launch_solve_t(const T* L, const T* B, T* X, long long nb, int n, int K,
-                   void* stream) {
-  const DeviceInfo* d = nullptr;
-  cudaError_t e = device_info(&d);
-  if (e != cudaSuccess) return (int)e;
+// The cluster launch for nb matrices: as many clusters per matrix as the
+// card holds at once, each on a block of kc columns. *ok = false when the
+// card does not hold a cluster per matrix (or a block's rows do not fit in
+// shared memory): the caller takes a batched design. fit_out, when given,
+// receives the clusters the card holds at the first plan's size, asked
+// with or without the cache, and nothing is launched.
+template <typename T, bool kFwd>
+cudaError_t launch_cluster(const T* L, const T* B, T* X, long long nb, int n,
+                           int K, void* stream, bool* ok,
+                           int* fit_out = nullptr, bool cached = true) {
+  *ok = false;
+  const panel::DeviceInfo* d = nullptr;
+  cudaError_t e = panel::device_info(&d);
+  if (e != cudaSuccess) return e;
   const int cap = d->cap, sms = d->sms;
   const int np = (n + kW - 1) / kW;
   const int C = np < kCluster ? np : kCluster;
   long long per = sms / C / nb;                  // clusters per matrix
-  if (C < 2 || per < 1) return launch_solve<T, false>(L, B, X, nb, n, K,
-                                                      stream);
-  SolvePlan p = solve_plan<T>(n, K, C, per);
-  if (p.smem > (size_t)cap)
-    return launch_solve<T, false>(L, B, X, nb, n, K, stream);
-  e = allow_cluster_smem<T>(cap);
-  if (e != cudaSuccess) return (int)e;
+  if (C < 2 || per < 1) return cudaSuccess;
+  SolvePlan p = solve_plan<T>(kFwd, n, K, C, per);
+  if (p.smem > (size_t)cap) return cudaSuccess;
+  e = allow_cluster_smem<T, kFwd>(cap);
+  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -942,21 +1003,74 @@ int launch_solve_t(const T* L, const T* B, T* X, long long nb, int n, int K,
   // the clusters the card holds at once at this size (the GPCs, not the
   // SM count, decide): fewer clusters, each with more columns
   int fit = 0;
-  e = clusters_fit<T>(&cfg, C, &fit);
-  if (e != cudaSuccess) return (int)e;
+  e = clusters_fit<T, kFwd>(&cfg, C, &fit, cached);
+  if (e != cudaSuccess) return e;
+  if (fit_out != nullptr) {
+    *fit_out = fit;
+    return cudaSuccess;
+  }
   if (fit / nb < per) {
     per = fit / nb;
-    if (per < 1) return launch_solve<T, false>(L, B, X, nb, n, K, stream);
-    p = solve_plan<T>(n, K, C, per);
-    if (p.smem > (size_t)cap)
-      return launch_solve<T, false>(L, B, X, nb, n, K, stream);
+    if (per < 1) return cudaSuccess;
+    p = solve_plan<T>(kFwd, n, K, C, per);
+    if (p.smem > (size_t)cap) return cudaSuccess;
     cfg.blockDim = dim3((unsigned)p.threads);
     cfg.dynamicSmemBytes = p.smem;
   }
   cfg.gridDim = dim3((unsigned)(C * ((K + p.kc - 1) / p.kc)), (unsigned)nb);
-  e = cudaLaunchKernelEx(&cfg, solve_lt_cluster_kernel<T>, L, B, X, n, K,
+  *ok = true;
+  e = cudaLaunchKernelEx(&cfg, solve_cluster_kernel<T, kFwd>, L, B, X, n, K,
                          p.kc, p.rows);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// L Y = B: on clusters while the card holds at least one cluster per
+// matrix at once, else the batched panel design (panel_solve.cuh), or one
+// block per matrix reading L in device memory where its panels do not fit
+// in shared memory.
+template <typename T>
+int launch_solve_lower(const T* L, const T* B, T* X, long long nb, int n,
+                       int K, void* stream) {
+  bool ok = false;
+  cudaError_t e = launch_cluster<T, true>(L, B, X, nb, n, K, stream, &ok);
+  if (e != cudaSuccess || ok) return (int)e;
+  const panel::DeviceInfo* d = nullptr;
+  e = panel::device_info(&d);
+  if (e != cudaSuccess) return (int)e;
+  if (!panel::fits<T>(panel::kLower, n, d->cap))
+    return launch_rows<T, true>(L, B, X, nb, n, K, stream);
+  return (int)panel::launch<T, panel::kLower>(L, nullptr, B, X, nb, n, K, *d,
+                                              (cudaStream_t)stream);
+}
+
+// L' X = B: the same choice, the panel design reading L' in place (its
+// panels' rows of L copied transposed into shared memory).
+template <typename T>
+int launch_solve_t(const T* L, const T* B, T* X, long long nb, int n, int K,
+                   void* stream) {
+  bool ok = false;
+  cudaError_t e = launch_cluster<T, false>(L, B, X, nb, n, K, stream, &ok);
+  if (e != cudaSuccess || ok) return (int)e;
+  const panel::DeviceInfo* d = nullptr;
+  e = panel::device_info(&d);
+  if (e != cudaSuccess) return (int)e;
+  if (!panel::fits<T>(panel::kLowerT, n, d->cap))
+    return launch_rows<T, false>(L, B, X, nb, n, K, stream);
+  return (int)panel::launch<T, panel::kLowerT>(L, nullptr, B, X, nb, n, K,
+                                               *d, (cudaStream_t)stream);
+}
+
+template <typename T>
+int cluster_fit(int fwd, int n, int K, long long nb, int cached) {
+  bool ok = false;
+  int fit = -1;
+  cudaError_t e = fwd ? launch_cluster<T, true>(nullptr, nullptr, nullptr, nb,
+                                                n, K, nullptr, &ok, &fit,
+                                                cached != 0)
+                      : launch_cluster<T, false>(nullptr, nullptr, nullptr,
+                                                 nb, n, K, nullptr, &ok, &fit,
+                                                 cached != 0);
+  return e != cudaSuccess ? -(int)e : fit;
 }
 
 }  // namespace
@@ -975,12 +1089,12 @@ int cholesky_f64(const double* A, double* L, long long nb, int n,
 
 int solve_lower_f32(const float* L, const float* B, float* X, long long nb,
                     int n, int K, void* stream) {
-  return launch_solve<float, true>(L, B, X, nb, n, K, stream);
+  return launch_solve_lower<float>(L, B, X, nb, n, K, stream);
 }
 
 int solve_lower_f64(const double* L, const double* B, double* X,
                     long long nb, int n, int K, void* stream) {
-  return launch_solve<double, true>(L, B, X, nb, n, K, stream);
+  return launch_solve_lower<double>(L, B, X, nb, n, K, stream);
 }
 
 int solve_lower_t_f32(const float* L, const float* B, float* X, long long nb,
@@ -991,6 +1105,18 @@ int solve_lower_t_f32(const float* L, const float* B, float* X, long long nb,
 int solve_lower_t_f64(const double* L, const double* B, double* X,
                       long long nb, int n, int K, void* stream) {
   return launch_solve_t<double>(L, B, X, nb, n, K, stream);
+}
+
+// The clusters the card holds at once for a solve's first cluster plan
+// (fwd: solve_lower's kernel, else solve_lower_t's), from the launchers'
+// cache (cached != 0) or asked anew; -1 where no cluster plan applies,
+// minus the CUDA error on failure.
+int chol_cluster_fit_f32(int fwd, int n, int K, long long nb, int cached) {
+  return cluster_fit<float>(fwd, n, K, nb, cached);
+}
+
+int chol_cluster_fit_f64(int fwd, int n, int K, long long nb, int cached) {
+  return cluster_fit<double>(fwd, n, K, nb, cached);
 }
 
 int chol_max_shared_bytes() {

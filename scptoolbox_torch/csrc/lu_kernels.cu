@@ -11,20 +11,22 @@
 // pivot below 1e-30 in magnitude is floored with its sign kept). The TPU's
 // batch-in-128-lanes layout, (8, 128) padding and identity padding do not
 // carry over: here one thread block owns one matrix (factor) or one
-// (matrix, block of RHS columns) pair (solve).
+// (block of RHS columns, matrix) pair (solve).
 //
 // What bounds them on this card. At the main path's shapes (s = 158 or
-// 145, 32..512 matrices) both are latency-bound, not bound by bytes or
-// flops: a factor is s dependent steps of (argmax, swap, rank-1 update),
-// a solve is 2s dependent substitution steps, each step ends in a
-// __syncthreads(). The design keeps every step on chip: the whole matrix
-// (factor) or the RHS block (solve) lives in shared memory, so a step costs
-// shared-memory traffic and one barrier, never a round trip to device
-// memory. The swaps of the solve are composed into one permutation first
-// and applied while loading the RHS (one gather instead of s swap steps),
-// and the back substitution defers the pivot scaling so each step needs a
-// single barrier. One shared factor takes any number of RHS columns: the
-// columns are split over gridDim.y, the factor is never copied.
+// 145, 32..512 matrices, K = 2, 37 or s columns) neither bytes nor flops:
+// the factor is s dependent steps of (argmax, swap, rank-1 update), each
+// ending in a __syncthreads(), with the whole matrix in shared memory; the
+// solve is 2s dependent substitution steps. The solve runs in 32-row
+// panels (panel_solve.cuh): three barriers a panel instead of one a row,
+// the factor's panels copied coalesced into shared memory one panel ahead
+// with cp.async, the diagonal blocks chained by warp shuffles (few
+// columns) or in a thread's registers (many), the rows past a panel
+// updated in register tiles. The swaps are composed into one permutation
+// by every thread at once and applied while loading the RHS. Few columns
+// are split over blocks while the card has idle SMs; many go in tiles of
+// up to 64 columns, the matrix index slowest, so that a matrix's tiles
+// read its factor from L2 together.
 //
 // Built with -fmad=false so that multiplications and subtractions round
 // exactly as the plain PyTorch version's separate operations do; the pivot
@@ -34,28 +36,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "panel_solve.cuh"
+
 namespace {
 
 constexpr int kFactorThreads = 512;
-constexpr int kSolveThreads = 256;
-constexpr int kSolveCols = 32;
-
-template <typename T> __device__ __forceinline__ T tiny_pivot();
-template <> __device__ __forceinline__ float tiny_pivot<float>() { return 1e-30f; }
-template <> __device__ __forceinline__ double tiny_pivot<double>() { return 1e-30; }
+using panel::pivot_recip;
 
 template <typename T> __device__ __forceinline__ T pos_inf();
 template <> __device__ __forceinline__ float pos_inf<float>() { return __int_as_float(0x7f800000); }
 template <> __device__ __forceinline__ double pos_inf<double>() { return __longlong_as_double(0x7ff0000000000000LL); }
-
-// sign(p) / max(|p|, 1e-30), NaN-propagating like the plain version's
-// torch.where(a < tiny, tiny, a).
-template <typename T>
-__device__ __forceinline__ T pivot_recip(T p) {
-  T a = fabs(p);
-  T mag = (a < tiny_pivot<T>()) ? tiny_pivot<T>() : a;
-  return (p < T(0) ? T(-1) : T(1)) / mag;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kFactorThreads)
@@ -130,80 +120,6 @@ lu_factor_kernel(const T* __restrict__ in, T* __restrict__ out,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kSolveThreads)
-lu_solve_kernel(const T* __restrict__ F, const int32_t* __restrict__ perm,
-                const T* __restrict__ Bm, T* __restrict__ X, int s, int K,
-                int kb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* b = reinterpret_cast<T*>(smem_raw);                    // (s, kb)
-  int* P = reinterpret_cast<int*>(b + (size_t)s * kb);      // (s,)
-
-  const int64_t mat = blockIdx.x;
-  const int k0 = blockIdx.y * kb;
-  const int kw = min(kb, K - k0);
-  const T* Fm = F + mat * (int64_t)s * s;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int col = tid % kb;
-  const int row0 = tid / kb;
-  const int rstride = nt / kb;
-  const bool active = row0 < rstride && col < kw;
-
-  // compose the recorded swaps (laswp order) into one row permutation
-  if (tid == 0) {
-    for (int i = 0; i < s; ++i) P[i] = i;
-    const int32_t* pr = perm + mat * s;
-    for (int j = 0; j < s; ++j) {
-      const int r = pr[j];
-      const int t = P[j];
-      P[j] = P[r];
-      P[r] = t;
-    }
-  }
-  __syncthreads();
-
-  const T* Bsrc = Bm + mat * (int64_t)s * K;
-  if (active) {
-    for (int i = row0; i < s; i += rstride) {
-      b[i * kb + col] = Bsrc[(int64_t)P[i] * K + k0 + col];
-    }
-  }
-  __syncthreads();
-
-  // unit-L forward substitution
-  for (int j = 0; j + 1 < s; ++j) {
-    if (active) {
-      const T bj = b[j * kb + col];
-      for (int i = j + 1 + row0; i < s; i += rstride) {
-        b[i * kb + col] = b[i * kb + col] - Fm[(int64_t)i * s + j] * bj;
-      }
-    }
-    __syncthreads();
-  }
-
-  // U back substitution with the sign-kept 1e-30 pivot floor; row j is
-  // final when step j starts, so x_j = b_j * d_j is formed on the fly and
-  // the scaling of b itself is deferred to the end
-  for (int j = s - 1; j > 0; --j) {
-    if (active) {
-      const T xj = b[j * kb + col] * pivot_recip(Fm[(int64_t)j * s + j]);
-      for (int i = row0; i < j; i += rstride) {
-        b[i * kb + col] = b[i * kb + col] - Fm[(int64_t)i * s + j] * xj;
-      }
-    }
-    __syncthreads();
-  }
-
-  T* Xdst = X + mat * (int64_t)s * K;
-  if (active) {
-    for (int i = row0; i < s; i += rstride) {
-      Xdst[(int64_t)i * K + k0 + col] =
-          b[i * kb + col] * pivot_recip(Fm[(int64_t)i * s + i]);
-    }
-  }
-}
-
-template <typename T>
 int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
                   void* stream) {
   const size_t smem = (size_t)s * s * sizeof(T);
@@ -219,16 +135,11 @@ int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
 template <typename T>
 int launch_solve(const T* F, const int32_t* perm, const T* B, T* X,
                  long long nb, int s, int K, void* stream) {
-  const int kb = K < kSolveCols ? K : kSolveCols;
-  const size_t smem = (size_t)s * kb * sizeof(T) + (size_t)s * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      lu_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const panel::DeviceInfo* d = nullptr;
+  cudaError_t e = panel::device_info(&d);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)nb, (unsigned)((K + kb - 1) / kb));
-  lu_solve_kernel<T><<<grid, kSolveThreads, smem, (cudaStream_t)stream>>>(
-      F, perm, B, X, s, K, kb);
-  return (int)cudaGetLastError();
+  return (int)panel::launch<T, panel::kLU>(F, perm, B, X, nb, s, K, *d,
+                                           (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -22,10 +22,10 @@ On a CUDA tensor a wrapper launches its CUDA C++ kernel
 (scptoolbox_torch/csrc/chol_kernels.cu, built with nvcc for sm_90a at first
 use, see ops/cuda_lib.py) or raises; on a CPU tensor it runs the plain
 version. The launcher picks the kernel's design from the batch: one thread
-block per matrix when the batch fills the card, and for a few matrices the
-factor spread over a cooperative grid and the backward solve over thread
-block clusters (the source's note says how); `solve_lower` keeps one block
-per matrix. The kernels take contiguous operands: a transposed view (the
+block per matrix when the batch fills the card (for `solve_lower` with its
+panels of L staged in shared memory), and for a few matrices the factor
+spread over a cooperative grid and both solves over thread block clusters
+(the source's note says how). The kernels take contiguous operands: a transposed view (the
 Schur KKT's A_E') is copied by `.contiguous()` first. The plain versions do
 the kernels' operations in the same order, so on the card the two agree bit
 for bit. Each wrapper counts its kernel launches in `<wrapper>.launches`.
@@ -44,6 +44,8 @@ LIB = cuda_lib.CudaLibrary("chol_kernels", {
     "cholesky_f64": (_P, _P, _L, _I, _P),
     "solve_lower_f32": _SOLVE, "solve_lower_f64": _SOLVE,
     "solve_lower_t_f32": _SOLVE, "solve_lower_t_f64": _SOLVE,
+    "chol_cluster_fit_f32": (_I, _I, _I, _L, _I),
+    "chol_cluster_fit_f64": (_I, _I, _I, _L, _I),
     "chol_max_shared_bytes": ()})
 
 

@@ -2,9 +2,10 @@
 
 Each kernel source `scptoolbox_torch/csrc/<name>.cu` has a plain C interface.
 It is compiled with nvcc for sm_90a at first use into the git-ignored
-`scptoolbox_torch/_build/` (one shared library per source and flag set,
-named by their hash) and loaded with ctypes; importing a kernel module builds
-nothing. `build_all` starts one nvcc per source, all at once.
+`scptoolbox_torch/_build/` (one shared library per source, named by the
+hash of the source, the shared headers `csrc/*.cuh` and the flags) and
+loaded with ctypes; importing a kernel module builds nothing. `build_all`
+starts one nvcc per source, all at once.
 
 While `launch_shapes` is a Counter, every kernel launch of every wrapper adds
 one under (kernel, dtype suffix, nb, n, K): the shapes a run gave the
@@ -67,8 +68,11 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
+        # the sources' shared headers are part of every build
         h = hashlib.sha256(self.source.read_bytes()
                            + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def load(self):

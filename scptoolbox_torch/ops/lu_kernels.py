@@ -19,8 +19,10 @@ tensor it runs the plain version. Each wrapper counts its kernel launches in
 
 What bounds the kernels on the H100, and what the design does about it, is
 noted at the top of the CUDA source: both are latency-bound chains of s
-(factor) or 2s (solve) dependent steps, kept in shared memory with one or
-two barriers per step.
+(factor) or 2s (solve) dependent steps. The factor keeps its matrix in
+shared memory with one or two barriers a step; the solve goes in 32-row
+panels (csrc/panel_solve.cuh), three barriers a panel, the factor's panels
+staged in shared memory ahead of their use.
 """
 
 from __future__ import annotations
@@ -143,8 +145,9 @@ lu_factor.launches = 0
 
 def lu_solve(fac, B: torch.Tensor) -> torch.Tensor:
     """Solve the factored systems for B (..., s, K): the CUDA kernel on the
-    card (one shared factor per matrix, any number of RHS columns), the
-    plain version on the CPU."""
+    card (one shared factor per matrix, any number of RHS columns; its
+    launch fails when two 32-column panels of the factor do not fit in a
+    block's shared memory), the plain version on the CPU."""
     F, perm = fac
     if B.device.type == "cpu":
         return lu_solve_plain(fac, B)

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the port's kernels in two checkouts on one GPU, at the groups a
+chip_smoke.py run checked.
+
+    python3 scripts/torch_ab_kernels.py OTHER_CHECKOUT [RECORD]
+
+RECORD is a chip_smoke.py record (default chiprun_out/chip_smoke.json); its
+kernels phase lists every (kernel, dtype, n, K) group and the batch it was
+timed at. OTHER_CHECKOUT is an unpacked tree of another commit (for
+example `git archive <parent> | tar -x -C _archive/parent`, a git-ignored
+directory). Each tree times every group in its own process, in the order
+other, this, this, other, on the same inputs (chip_smoke.py's, from the
+same seed), 20 launches after a warm-up, by CUDA events: through the
+wrappers as chip_smoke.py times them (host and device), and on the device
+alone (the 20 launches captured in a CUDA graph and replayed). Prints one
+line a group with both trees' times and the ratios of their means, and
+writes chiprun_out/ab_kernels.json.
+"""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_tree(root, groups):
+    """{group: ms} of root's kernels (run in a child process)."""
+    import torch
+
+    sys.path.insert(0, root)
+    # this checkout's chip_smoke.py (inputs and timers), whichever tree runs
+    spec = importlib.util.spec_from_file_location(
+        "ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from scptoolbox_torch.ops import chol_kernels as ck
+    from scptoolbox_torch.ops import cuda_lib
+    from scptoolbox_torch.ops import gj_kernels as gk
+    from scptoolbox_torch.ops import lu_kernels as lk
+
+    cuda_lib.build_all([lk.LIB, ck.LIB, gk.LIB])
+    gen = torch.Generator(device="cuda")
+    out = []
+    for kernel, dtname, nb, n, K in groups:
+        gen.manual_seed(0)
+        run, _, _ = chip_smoke._kernel_case(
+            torch, lk, ck, gk, kernel, getattr(torch, dtname), nb, n, K, gen)
+        out.append((chip_smoke._time_ms(torch, run, 20),
+                    chip_smoke._device_ms(torch, run, 20)))
+    return out
+
+
+def main():
+    if sys.argv[1] == "--child":
+        groups = json.loads(sys.argv[3])
+        print(json.dumps(time_tree(os.path.abspath(sys.argv[2]), groups)))
+        return 0
+    other = os.path.abspath(sys.argv[1])
+    record = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        HERE, "chiprun_out", "chip_smoke.json")
+    rows = json.load(open(record))["kernels"]
+    groups = sorted({(r["kernel"], r["dtype"], r["bound_nb"], r["n"], r["K"])
+                     for r in rows})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    times = {"other": [], "this": []}
+    for tag, root in (("other", other), ("this", HERE), ("this", HERE),
+                      ("other", other)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", root,
+             json.dumps(groups)], capture_output=True, text=True, check=True)
+        times[tag].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    table = []
+    mean = lambda v: sum(v) / len(v)
+    for i, (kernel, dtname, nb, n, K) in enumerate(groups):
+        a = [t[i][0] for t in times["other"]]
+        b = [t[i][0] for t in times["this"]]
+        ad = [t[i][1] for t in times["other"]]
+        bd = [t[i][1] for t in times["this"]]
+        row = dict(kernel=kernel, dtype=dtname, nb=nb, n=n, K=K,
+                   other_ms=a, this_ms=b, ratio=mean(b) / mean(a),
+                   other_device_ms=ad, this_device_ms=bd,
+                   device_ratio=mean(bd) / mean(ad))
+        table.append(row)
+        print(json.dumps(row), flush=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "ab_kernels.json"), "w") as f:
+        json.dump({"card": smi, "other": other, "groups": table}, f,
+                  indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Phase timeline of the spread Cholesky factor and the cluster backward
-solve (scptoolbox_torch/csrc/chol_kernels.cu) at one float64 matrix, on one
-GPU.
+"""Phase timeline inside the port's substitution and Cholesky kernels
+(scptoolbox_torch/csrc/) on one GPU, from %globaltimer stamps.
 
-    python3 scripts/torch_kernel_timeline.py [n]      # n defaults to 876
+    python3 scripts/torch_kernel_timeline.py [--tree DIR] [--n N]
 
-No profiler on the card sees inside a kernel, so this copies the source,
-inserts %globaltimer stamps at the phase boundaries of block 0 (the factor:
-diagonal block and panel rows, first grid barrier, trailing tiles, second
-grid barrier; the solve: the cluster barrier's arrive, the copies issued
-inside it, its wait, the next panel's owner updating and solving it, the
-other rows' update), builds the copy with nvcc into the git-ignored
-_archive/timeline/ and loads it with ctypes. Prints, per kernel, the span
-of block 0 and the time summed over each kind of phase, with its count.
-The stamps cost a few hundred nanoseconds each.
+No profiler on the card sees inside a kernel, so this copies the kernel
+sources of a tree (this checkout, or DIR: an unpacked tree of another
+commit, for example the parent's under the git-ignored _archive/), inserts
+%globaltimer stamps at the phase boundaries of block 0 (thread 0 of the
+first block of the grid), builds the copies with nvcc into the git-ignored
+_archive/timeline/ and loads them with ctypes. The stamps know the designs
+of both trees: where a design's anchor is missing from a source, its
+stamps are left out.
+
+Runs, each once after a warm-up launch: cholesky at 1 x N^2 (float64,
+N = 876 by default); solve_lower_t and solve_lower at 1 x N, K = 2 and 566
+(float64); solve_lower at 128 x 314, K = 2 and 64 (float32); lu_solve at
+512 x 158, K = 2 and 158 (float32). Prints, per run, the span of block 0
+and the time summed over each kind of phase, with its count, and the
+kernel's own time by CUDA events over 20 launches. The stamps cost a few
+hundred nanoseconds each.
 """
 
+import argparse
 import collections
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 
@@ -29,8 +37,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAMP = '''
 __device__ unsigned long long g_tlog[8192];
 __device__ int g_tag[8192];
-#define TS(tag) if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) \\
-  { unsigned long long t_; \\
+#define TS(tag) if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 \\
+  && slot_ < 8192) { unsigned long long t_; \\
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \\
     g_tlog[slot_] = t_; g_tag[slot_++] = tag; }
 '''
@@ -44,27 +52,85 @@ extern "C" int clear_tlog() {
   return (int)cudaMemcpyToSymbol(g_tag, z, sizeof(z));
 }
 '''
-# (pattern, its replacement): the stamps around each phase boundary
+# (file, pattern, its replacement): the stamps around each phase boundary
 EDITS = [
-    ("cg::grid_group grid = cg::this_grid();",
+    # the spread Cholesky factor
+    ("chol_kernels.cu", "cg::grid_group grid = cg::this_grid();",
      "cg::grid_group grid = cg::this_grid(); int slot_ = 0;"),
-    ("cg::cluster_group cluster = cg::this_cluster();",
-     "cg::cluster_group cluster = cg::this_cluster(); int slot_ = 0;"),
-    ("  grid.sync();\n\n  for (int j0", "  grid.sync(); TS(1);\n\n  for (int j0"),
-    ("    __syncthreads();\n\n    // (A) the panel's rows below",
+    ("chol_kernels.cu", "  grid.sync();\n\n  for (int j0",
+     "  grid.sync(); TS(1);\n\n  for (int j0"),
+    ("chol_kernels.cu", "    __syncthreads();\n\n    // (A) the panel's rows below",
      "    __syncthreads(); TS(2);\n\n    // (A) the panel's rows below"),
-    ("    grid.sync();\n\n    // (B)",
+    ("chol_kernels.cu", "    grid.sync();\n\n    // (B)",
      "    TS(3); grid.sync(); TS(4);\n\n    // (B)"),
-    ("    grid.sync();\n  }\n}", "    TS(5); grid.sync(); TS(6);\n  }\n}"),
-    ("__syncthreads();              // this block is done with panel q - 1",
+    ("chol_kernels.cu", "    grid.sync();\n  }\n}",
+     "    TS(5); grid.sync(); TS(6);\n  }\n}"),
+    # the cluster solves (both directions)
+    ("chol_kernels.cu", "cg::cluster_group cluster = cg::this_cluster();",
+     "cg::cluster_group cluster = cg::this_cluster(); int slot_ = 0;"),
+    ("chol_kernels.cu",
+     "__syncthreads();              // this block is done with panel q - 1",
      "__syncthreads(); TS(11);"),
-    ('asm volatile("barrier.cluster.arrive.release;" ::: "memory");',
+    ("chol_kernels.cu",
+     'asm volatile("barrier.cluster.arrive.release;" ::: "memory");',
      'TS(12); asm volatile("barrier.cluster.arrive.release;" ::: "memory");'),
-    ('asm volatile("barrier.cluster.wait.acquire;" ::: "memory");',
+    ("chol_kernels.cu",
+     'asm volatile("barrier.cluster.wait.acquire;" ::: "memory");',
      'TS(13); asm volatile("barrier.cluster.wait.acquire;" ::: "memory");'
      " TS(14);"),
-    ("solve_panel(q + 1, true);",
+    ("chol_kernels.cu", "solve_panel(q + 1, true);",
      "TS(16); solve_panel(q + 1, true); TS(17);"),
+    # the one-block solve reading L in device memory
+    ("chol_kernels.cu", "  const bool active = row0 < rstride && c < kw;\n",
+     "  const bool active = row0 < rstride && c < kw;\n  int slot_ = 0;\n"),
+    ("chol_kernels.cu",
+     "    // the diagonal block: lane r holds row lo + r of column cc\n",
+     "    TS(40);\n    // the diagonal block: lane r holds row lo + r of "
+     "column cc\n"),
+    ("chol_kernels.cu",
+     "    // the rows past the panel take its w solved rows, in column order\n",
+     "    TS(41);\n    // the rows past the panel take its w solved rows, in "
+     "column order\n"),
+    ("chol_kernels.cu",
+     "    __syncthreads();\n  }\n}\n\n// Phase (A) of the spread factor",
+     "    __syncthreads(); TS(42);\n  }\n}\n\n// Phase (A) of the spread "
+     "factor"),
+    # the panel solve (lu_solve, the batched solve_lower)
+    ("panel_solve.cuh",
+     "  const int nsteps = kMode == kLU ? 2 * np : np;\n",
+     "  const int nsteps = kMode == kLU ? 2 * np : np;\n"
+     "  int slot_ = 0; TS(20);\n"),
+    ("panel_solve.cuh", "  for (int g = 0; g < nsteps; ++g) {\n",
+     "  TS(21);\n  for (int g = 0; g < nsteps; ++g) {\n"),
+    ("panel_solve.cuh",
+     "    __syncthreads();              // everyone's, and X's rows\n",
+     "    __syncthreads(); TS(22);\n"),
+    ("panel_solve.cuh",
+     "    __syncthreads();\n    const int ib = fwd ? p0 + w : 0;\n",
+     "    TS(23); __syncthreads(); TS(24);\n"
+     "    const int ib = fwd ? p0 + w : 0;\n"),
+    ("panel_solve.cuh",
+     "    __syncthreads();              // step g's buffer is free again\n",
+     "    TS(25); __syncthreads(); TS(26);\n"),
+    ("panel_solve.cuh",
+     "    X[(int64_t)i * K + c] = Xs[(int64_t)i * kb + c];\n  }\n}",
+     "    X[(int64_t)i * K + c] = Xs[(int64_t)i * kb + c];\n  }\n  TS(27);\n}"),
+    # the one-block lu_solve of the earlier design (row by row)
+    ("lu_kernels.cu", "  const bool active = row0 < rstride && col < kw;\n",
+     "  const bool active = row0 < rstride && col < kw;\n"
+     "  int slot_ = 0; TS(30);\n"),
+    ("lu_kernels.cu", "  __syncthreads();\n\n  const T* Bsrc",
+     "  __syncthreads(); TS(31);\n\n  const T* Bsrc"),
+    ("lu_kernels.cu", "  // unit-L forward substitution\n",
+     "  TS(32);\n  // unit-L forward substitution\n"),
+    ("lu_kernels.cu", "  // U back substitution",
+     "  TS(33);\n  // U back substitution"),
+    ("lu_kernels.cu", "  T* Xdst = X + mat", "  TS(34);\n  T* Xdst = X + mat"),
+    ("lu_kernels.cu",
+     "          b[i * kb + col] * pivot_recip(Fm[(int64_t)i * s + i]);\n"
+     "    }\n  }\n}",
+     "          b[i * kb + col] * pivot_recip(Fm[(int64_t)i * s + i]);\n"
+     "    }\n  }\n  TS(35);\n}"),
 ]
 NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (2, 3): "panel rows",
@@ -73,33 +139,66 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (13, 14): "cluster wait", (14, 16): "(block sync)",
          (16, 17): "owner: its panel's update and solve",
          (17, 11): "other rows update",
-         (14, 11): "rows update"}
+         (14, 11): "rows update",
+         (40, 41): "diagonal block + barrier",
+         (41, 42): "rows past the panel + barrier", (42, 40): "(loop)",
+         (20, 21): "prologue (record, permutation, gather)",
+         (21, 22): "panel copy wait + barrier",
+         (26, 22): "panel copy wait + barrier",
+         (22, 23): "diagonal block", (23, 24): "barrier 2",
+         (24, 25): "rows past the panel", (25, 26): "barrier 3",
+         (26, 27): "write X",
+         (30, 31): "permutation (thread 0)", (31, 32): "gather + barrier",
+         (32, 33): "forward (a barrier a row)",
+         (33, 34): "backward (a barrier a row)", (34, 35): "write X"}
 
 
-def build():
-    text = open(os.path.join(REPO, "scptoolbox_torch/csrc/chol_kernels.cu")
-                ).read()
-    for pat, rep in EDITS:
-        assert text.count(pat) == 1, pat
-        text = text.replace(pat, rep)
-    text = text.replace("namespace cg = cooperative_groups;",
-                        "namespace cg = cooperative_groups;" + STAMP) + READ
-    out = os.path.join(REPO, "_archive", "timeline")
-    os.makedirs(out, exist_ok=True)
-    cu, so = os.path.join(out, "timed.cu"), os.path.join(out, "libtimed.so")
-    with open(cu, "w") as f:
-        f.write(text)
+def build(tree, tag):
+    """Stamped copies of tree's kernel sources, built; {source: CDLL}."""
+    src = os.path.join(tree, "scptoolbox_torch", "csrc")
+    out = os.path.join(REPO, "_archive", "timeline", tag)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    names = [f for f in os.listdir(src) if f.endswith((".cu", ".cuh"))]
+    for name in names:
+        text = open(os.path.join(src, name)).read()
+        for fname, pat, rep in EDITS:
+            if fname == name:
+                assert text.count(pat) <= 1, pat
+                text = text.replace(pat, rep)
+        if name.endswith(".cu"):
+            text = STAMP + text + READ
+        with open(os.path.join(out, name), "w") as f:
+            f.write(text)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-fmad=false", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", so, cu], check=True)
-    lib = ctypes.CDLL(so)
-    lib.read_tlog.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    return lib
+    libs, procs = {}, []
+    for name in ("lu_kernels.cu", "chol_kernels.cu"):
+        so = os.path.join(out, f"lib{name[:-3]}.so")
+        procs.append((name, so, subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-o",
+             so, os.path.join(out, name)])))
+    for name, so, proc in procs:
+        assert proc.wait() == 0, f"nvcc failed on {name}"
+        lib = ctypes.CDLL(so)
+        lib.read_tlog.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int]
+        libs[name] = lib
+    return libs
 
 
 def report(lib, run, what):
+    run()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        run()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / 20
     lib.clear_tlog()
     run()
     torch.cuda.synchronize()
@@ -113,38 +212,70 @@ def report(lib, run, what):
         name = NAMES.get((int(g[i - 1]), int(g[i])), f"{g[i - 1]}->{g[i]}")
         acc[name] += (t[i] - t[i - 1]) / 1e3
         cnt[name] += 1
-    print(what, f"block 0 span {(t[-1] - t[0]) / 1e3:.1f} us;",
+    span = (t[-1] - t[0]) / 1e3 if k else float("nan")
+    print(what, f"kernel {ms * 1e3:.1f} us; block 0 span {span:.1f} us;",
           "; ".join(f"{k2} {v:.1f} us x{cnt[k2]}" for k2, v in acc.items()),
           flush=True)
 
 
 def main():
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 876
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=REPO)
+    ap.add_argument("--n", type=int, default=876)
+    args = ap.parse_args()
+    n = args.n
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(smi, flush=True)
-    lib = build()
+    tree = os.path.abspath(args.tree)
+    print(smi, "| tree:", os.path.relpath(tree, REPO), flush=True)
+    libs = build(tree, "this" if tree == REPO else "other")
+    ch, lu = libs["chol_kernels.cu"], libs["lu_kernels.cu"]
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     st = P(torch.cuda.current_stream().cuda_stream)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    M = torch.randn(1, n, n, generator=g, device="cuda", dtype=torch.float64)
-    H = M @ M.mT + n * torch.eye(n, device="cuda", dtype=torch.float64)
-    Lf = torch.empty_like(H)
-    chol = lambda: lib.cholesky_f64(P(H.data_ptr()), P(Lf.data_ptr()),
-                                    L(1), I(n), st)
-    chol()
-    report(lib, chol, f"cholesky 1 x {n}^2:")
-    for K in (2, 566):
-        B = torch.randn(1, n, K, generator=g, device="cuda",
-                        dtype=torch.float64)
+
+    def spd(nb, m, dt):
+        M = torch.randn(nb, m, m, generator=g, device="cuda", dtype=dt)
+        return M @ M.mT + m * torch.eye(m, device="cuda", dtype=dt)
+
+    def run_solve(lib, fn, Lf, nb, m, K, dt):
+        B = torch.randn(nb, m, K, generator=g, device="cuda", dtype=dt)
         X = torch.empty_like(B)
-        run = lambda: lib.solve_lower_t_f64(P(Lf.data_ptr()), P(B.data_ptr()),
-                                            P(X.data_ptr()), L(1), I(n),
-                                            I(K), st)
-        run()
-        report(lib, run, f"solve_lower_t 1 x {n}, K={K}:")
+        return lambda: getattr(lib, fn)(P(Lf.data_ptr()), P(B.data_ptr()),
+                                        P(X.data_ptr()), L(nb), I(m), I(K),
+                                        st)
+
+    f64 = torch.float64
+    H = spd(1, n, f64)
+    Lf = torch.empty_like(H)
+    chol = lambda: ch.cholesky_f64(P(H.data_ptr()), P(Lf.data_ptr()), L(1),
+                                   I(n), st)
+    chol()
+    report(ch, chol, f"cholesky 1 x {n}^2 float64:")
+    for fn in ("solve_lower_t", "solve_lower"):
+        for K in (2, 566):
+            report(ch, run_solve(ch, f"{fn}_f64", Lf, 1, n, K, f64),
+                   f"{fn} 1 x {n}, K={K} float64:")
+    Hb = spd(128, 314, torch.float32)
+    Lb = torch.linalg.cholesky(Hb).contiguous()   # any lower factor does
+    for K in (2, 64):
+        report(ch, run_solve(ch, "solve_lower_f32", Lb, 128, 314, K,
+                             torch.float32),
+               f"solve_lower 128 x 314, K={K} float32:")
+    M = torch.randn(512, 158, 158, generator=g, device="cuda")
+    M.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
+    F, piv = torch.linalg.lu_factor(M)
+    F = F.contiguous()
+    perm = (piv - 1).to(torch.int32).contiguous()
+    for K in (2, 158):
+        B = torch.randn(512, 158, K, generator=g, device="cuda")
+        X = torch.empty_like(B)
+        run = lambda: lu.lu_solve_f32(P(F.data_ptr()), P(perm.data_ptr()),
+                                      P(B.data_ptr()), P(X.data_ptr()),
+                                      L(512), I(158), I(K), st)
+        report(lu, run, f"lu_solve 512 x 158, K={K} float32:")
     return 0
 
 

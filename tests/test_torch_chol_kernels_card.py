@@ -127,3 +127,38 @@ def test_transposed_view_and_empty_shapes(card):
         ck.cholesky(torch.zeros(2, 4, 4, dtype=torch.float16, device=card))
     with pytest.raises(ValueError):
         ck.solve_lower(L, torch.zeros(2, 20, 1, device=card))
+
+
+# batches beyond the clusters the card holds at once: solve_lower's panel
+# design (its panels of L in shared memory), and where two panels of n
+# rows do not fit there (541 float64), the one-block design reading L in
+# device memory; at the column counts of the panel design's switch points
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,n", [(32, 31), (32, 145), (128, 64),
+                                  (128, 314), (32, 541), (512, 158)])
+def test_batched_solves_equal_plain_on_card(card, nb, n, dtype):
+    L = ck.cholesky(_spd(nb, n, dtype, card, seed=n))
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n)
+    for K in (1, 2, 8, 9, 33, 64, 65):
+        B = torch.randn(nb, n, K, dtype=dtype, device=card, generator=gen)
+        assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B)), K
+        assert torch.equal(ck.solve_lower_t(L, B),
+                           ck.solve_lower_t_plain(L, B)), K
+
+
+@pytest.mark.cuda
+def test_cluster_occupancy_caches_do_not_mix(card):
+    """The forward and backward cluster kernels keep their own occupancy
+    caches: whichever is asked first, each cached answer is the card's
+    answer for its own kernel."""
+    lib = ck.LIB.load()
+    for fwd_first in (1, 0):
+        for dtype, fn in ((torch.float64, lib.chol_cluster_fit_f64),
+                          (torch.float32, lib.chol_cluster_fit_f32)):
+            for n, K in ((876, 2), (876, 566), (541, 60), (3 * 314, 64)):
+                for fwd in (fwd_first, 1 - fwd_first):
+                    fresh = fn(fwd, n, K, 1, 0)
+                    assert fresh > 0, (dtype, n, K, fwd, fresh)
+                    assert fn(fwd, n, K, 1, 1) == fresh, (dtype, n, K, fwd)

@@ -83,3 +83,62 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     F, P = lk.lu_factor(torch.eye(4, device=card).expand(2, 4, 4))
     with pytest.raises(ValueError):
         lk.lu_solve((F, P), torch.zeros(3, 4, 1, device=card))
+
+
+def _equal_or_both_nan(a, b):
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
+
+
+# the panel solve at widths around its 32-row panels and at the paths'
+# block sizes, at the column counts of its designs and their switch points
+# (a warp per column up to 8 columns, register tiles above; tiles of up to
+# 64 columns, narrower while they leave SMs idle), at one matrix, a few
+# and a card's worth
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [1, 32, 512])
+@pytest.mark.parametrize("s", [16, 31, 32, 33, 145, 158])
+def test_lu_solve_equals_plain_bit_for_bit(card, dtype, nb, s):
+    M = _blocks(nb, s, dtype, card)
+    fac = lk.lu_factor(M)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(s + nb)
+    for K in (1, 2, 8, 9, 33, 37, 64, 65, 158):
+        B = torch.randn(nb, s, K, dtype=dtype, device=card, generator=gen)
+        assert torch.equal(lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)), K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [2, 37])
+def test_lu_solve_floor_and_nan_like_plain(card, dtype, K):
+    """Pivots below the 1e-30 floor (either sign, and zero) are floored with
+    their sign kept, and a NaN in the factor spreads as in the plain
+    version; the record is any valid one (row j swaps with a row >= j)."""
+    nb, s = 4, 158
+    rng = np.random.default_rng(5)
+    F = torch.as_tensor(rng.standard_normal((nb, s, s)), dtype=dtype,
+                        device=card)
+    F[0, 3, 3], F[0, 40, 40], F[1, 100, 100] = 1e-35, -1e-40, 0.0
+    F[2, 77, 12] = float("nan")
+    F[3, 150, 150] = float("nan")
+    rec = np.array([[rng.integers(j, s) for j in range(s)]
+                    for _ in range(nb)])
+    fac = (F, torch.as_tensor(rec, dtype=torch.int32, device=card))
+    B = torch.randn(nb, s, K, dtype=dtype, device=card)
+    X, Xp = lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)
+    assert torch.isnan(Xp[2]).any() and torch.isnan(Xp[3]).any()
+    assert _equal_or_both_nan(X, Xp)
+
+
+@pytest.mark.cuda
+def test_lu_solve_refuses_panels_beyond_shared_memory(card):
+    """Two staged 32-column panels of a 500-wide float64 factor (264 KB) do
+    not fit in a block's shared memory: the launch fails and says so."""
+    s = 500
+    F = torch.eye(s, dtype=torch.float64, device=card)[None]
+    rec = torch.arange(s, dtype=torch.int32, device=card)[None]
+    with pytest.raises(RuntimeError, match="lu_solve kernel launch failed"):
+        lk.lu_solve((F, rec), torch.ones(1, s, 2, dtype=torch.float64,
+                                         device=card))
