@@ -10,28 +10,52 @@
 // record; pivot = first index of max |a_ij| at or below the diagonal; a
 // pivot below 1e-30 in magnitude is floored with its sign kept). The TPU's
 // batch-in-128-lanes layout, (8, 128) padding and identity padding do not
-// carry over: here one thread block owns one matrix (factor) or one
-// (block of RHS columns, matrix) pair (solve).
+// carry over.
 //
 // What bounds them on this card. At the main path's shapes (s = 158 or
-// 145, 32..512 matrices, K = 2, 37 or s columns) neither bytes nor flops:
-// the factor is s dependent steps of (argmax, swap, rank-1 update), each
-// ending in a __syncthreads(), with the whole matrix in shared memory; the
-// solve is 2s dependent substitution steps. The solve runs in 32-row
-// panels (panel_solve.cuh): three barriers a panel instead of one a row,
-// the factor's panels copied coalesced into shared memory one panel ahead
-// with cp.async, the diagonal blocks chained by warp shuffles (few
-// columns) or in a thread's registers (many), the rows past a panel
-// updated in register tiles. The swaps are composed into one permutation
-// by every thread at once and applied while loading the RHS. Few columns
-// are split over blocks while the card has idle SMs; many go in tiles of
-// up to 64 columns, the matrix index slowest, so that a matrix's tiles
-// read its factor from L2 together.
+// 145, 32..512 matrices; s = 29 or 16, 128..2048 matrices; K = 2, 37 or s
+// columns) neither bytes nor flops: the factor is s dependent steps of
+// (argmax, swap, rank-1 update), the solve 2s dependent substitution steps.
+//
+// The factor has two designs, chosen by the launcher from s:
+// * s <= 32: a warp per matrix, four matrices a block. Lane i holds row i
+//   in registers; the pivot search is two warp reductions (the largest
+//   key, then the smallest position holding it), the pivot row reaches
+//   every lane by shuffles, and the swap only exchanges two lanes' row
+//   positions (the rows are written out by position at the end). No block
+//   barrier at all.
+// * s > 32: one block per matrix, the matrix in shared memory (copied in
+//   with cp.async), in 32-column panels. Swaps are virtual: a position ->
+//   physical row map, so no row ever moves in shared memory. The panel's
+//   rows (all rows at or below it) are held a row a thread in registers;
+//   one block barrier a column: each warp offers its best candidate row,
+//   every thread picks the same winner (vector loads and selects, no
+//   branch), the rows update the next column first so that the next
+//   step's warp reductions overlap the rest of the row update, and
+//   threads without a row build the panel's 32 rows of U right of it, a
+//   column each, as the pivot rows arrive. Then the trailing block, a
+//   warp per 4 rows and up to 128 columns in registers (4 x CT tiles),
+//   each entry taking the panel's 32 updates in column order: two block
+//   barriers a panel. A panel of at most 32 rows (the last) is one warp's,
+//   as in the small design.
+// The solve runs in 32-row panels (panel_solve.cuh): three barriers a panel
+// instead of one a row, the factor's panels copied coalesced into shared
+// memory one panel ahead with cp.async, the diagonal blocks chained by warp
+// shuffles (few columns) or in a thread's registers (many), the rows past a
+// panel updated in register tiles. The swaps are composed into one
+// permutation by every thread at once and applied while loading the RHS.
+// Few columns are split over blocks while the card has idle SMs; many go in
+// tiles of up to 64 columns, the matrix index slowest, so that a matrix's
+// tiles read its factor from L2 together.
 //
 // Built with -fmad=false so that multiplications and subtractions round
-// exactly as the plain PyTorch version's separate operations do; the pivot
-// record then agrees with the plain version's bit for bit.
+// exactly as the plain PyTorch version's separate operations do. Every
+// entry of the factor takes the plain version's updates in its order (a
+// blocked order changes which entries are updated when, not the operations
+// an entry sees), so the tableau and the pivot record agree with the plain
+// version's bit for bit.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -40,95 +64,567 @@
 
 namespace {
 
-constexpr int kFactorThreads = 512;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kPW = 32;              // panel width
+constexpr int kPanelThreads = 256;
+constexpr int kPanelWarps = kPanelThreads / 32;
+constexpr int kRT = 4;               // trailing tiles: rows a warp task
+constexpr int kSmallWarps = 4;       // s <= 32: matrices a block
 using panel::pivot_recip;
 
-template <typename T> __device__ __forceinline__ T pos_inf();
-template <> __device__ __forceinline__ float pos_inf<float>() { return __int_as_float(0x7f800000); }
-template <> __device__ __forceinline__ double pos_inf<double>() { return __longlong_as_double(0x7ff0000000000000LL); }
+// The pivot search's order key of an entry: the bits of |a| plus one, NaN
+// counted as +inf; a row that takes no part has key 0. A larger key is a
+// larger |a|, equal keys equal |a|.
+template <typename T> struct KeyOf;
+template <> struct KeyOf<float> { using type = unsigned; };
+template <> struct KeyOf<double> { using type = unsigned long long; };
+
+__device__ __forceinline__ unsigned pivot_key(float a) {
+  const unsigned u = __float_as_uint(a) & 0x7fffffffu;
+  return (u > 0x7f800000u ? 0x7f800000u : u) + 1u;
+}
+__device__ __forceinline__ unsigned long long pivot_key(double a) {
+  const unsigned long long u =
+      (unsigned long long)__double_as_longlong(a) & 0x7fffffffffffffffULL;
+  return (u > 0x7ff0000000000000ULL ? 0x7ff0000000000000ULL : u) + 1ULL;
+}
+
+// the warp's largest key
+__device__ __forceinline__ unsigned warp_max(unsigned k) {
+  return __reduce_max_sync(kAll, k);
+}
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
+  const unsigned hi = __reduce_max_sync(kAll, (unsigned)(k >> 32));
+  const unsigned lo = __reduce_max_sync(
+      kAll, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// Factor columns j0 .. j0 + w - 1 (w <= KS) of the rows one warp holds,
+// a row a lane in registers: v[t] is column j0 + t of the lane's row, pos
+// its position (lanes without a row hold positions no step reaches, and
+// has_row false). A step: the pivot is the lane the step's reductions
+// found (the largest key, then the smallest position holding it); its
+// pivot reciprocal and row reach every lane by shuffles; the swap only
+// exchanges two positions. The next column is updated first and its
+// reductions start before the rest of the row is updated, and every lane
+// takes its own pivot reciprocal beside them, so the chain a step is two
+// reductions, a ballot and two shuffles. rec: lane t's is step j0 + t's
+// pivot position.
+template <typename T, int KS>
+__device__ __forceinline__ void warp_lu(T (&v)[KS], int& pos, int& rec,
+                                        bool has_row, int j0, int w,
+                                        int lane) {
+  using K = typename KeyOf<T>::type;
+  K key = has_row ? pivot_key(v[0]) : K(0);
+  T dn = pivot_recip(v[0]);
+  K best = warp_max(key);
+  int r = (int)__reduce_min_sync(kAll, key == best ? (unsigned)pos
+                                                   : 0xffffffffu);
+#pragma unroll
+  for (int jj = 0; jj < KS; ++jj) {
+    if (jj >= w) break;
+    const int j = j0 + jj;
+    const int src = __ffs(__ballot_sync(kAll, pos == r)) - 1;
+    if (lane == jj) rec = r;
+    const T d = __shfl_sync(kAll, dn, src);
+    if (pos == r) pos = j;
+    else if (pos == j) pos = r;
+    const bool upd = has_row && pos > j;
+    const T l = v[jj] * d;
+    if (jj + 1 < KS) {
+      const T u1 = __shfl_sync(kAll, v[jj + 1], src);
+      if (upd) v[jj + 1] = v[jj + 1] - l * u1;
+      key = upd ? pivot_key(v[jj + 1]) : K(0);
+      dn = pivot_recip(v[jj + 1]);
+      best = warp_max(key);
+      r = (int)__reduce_min_sync(kAll, key == best ? (unsigned)pos
+                                                   : 0xffffffffu);
+    }
+#pragma unroll
+    for (int c = jj + 2; c < KS; ++c) {
+      const T u = __shfl_sync(kAll, v[c], src);
+      if (upd) v[c] = v[c] - l * u;
+    }
+    if (upd) v[jj] = l;
+  }
+}
+
+// s <= 32: a warp per matrix. Lane i holds row i (KS = 16 or 32 columns
+// in registers; lanes >= s hold no row). S: the warp's staging area, row
+// stride s | 1 (odd: a lane per row touches every bank once), filled with
+// cp.async.
+template <typename T, int KS>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+lu_factor_warp_kernel(const T* __restrict__ in, T* __restrict__ out,
+                      int32_t* __restrict__ perm, long long nb, int s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long mat = (long long)blockIdx.x * kSmallWarps + warp;
+  if (mat >= nb) return;
+  const int ld = s | 1;
+  T* S = reinterpret_cast<T*>(smem_raw) + warp * KS * (KS | 1);
+  const T* src = in + mat * s * s;
+  T* dst = out + mat * s * s;
+
+  for (int i = 0; i < s; ++i)
+    if (lane < s)
+      __pipeline_memcpy_async(S + i * ld + lane, src + (int64_t)i * s + lane,
+                              sizeof(T));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  const bool has_row = lane < s;
+  T v[KS];
+#pragma unroll
+  for (int c = 0; c < KS; ++c)
+    v[c] = (has_row && c < s) ? S[lane * ld + c] : T(0);
+
+  int pos = lane;          // the row's position; lanes >= s stay at >= s
+  int rec = 0;
+  warp_lu<T, KS>(v, pos, rec, has_row, 0, s, lane);
+
+  __syncwarp();
+  if (has_row) {
+#pragma unroll
+    for (int c = 0; c < KS; ++c)
+      if (c < s) S[pos * ld + c] = v[c];
+  }
+  __syncwarp();
+  for (int i = 0; i < s; ++i)
+    if (lane < s) dst[(int64_t)i * s + lane] = S[i * ld + lane];
+  if (lane < s) perm[mat * s + lane] = rec;
+}
+
+// The panel design's shared memory: two buffers of each warp's candidate
+// pivot row (16-byte aligned, written and read as vectors) and of its
+// pivot reciprocal, order key and order word (the position and the warp);
+// the matrix by physical row (s x s); the candidates' physical rows; the
+// position -> physical row map.
+template <typename T>
+struct PanelSmem {
+  using K = typename KeyOf<T>::type;
+  T* Cv;
+  T* Cd;
+  K* Ck;
+  unsigned* Co;
+  T* W;
+  int* Ch;
+  int* Pm;
+  __device__ PanelSmem(unsigned char* raw, int s) {
+    Cv = reinterpret_cast<T*>(raw);
+    Cd = Cv + 2 * kPanelWarps * kPW;
+    Ck = reinterpret_cast<K*>(Cd + 2 * kPanelWarps);
+    Co = reinterpret_cast<unsigned*>(Ck + 2 * kPanelWarps);
+    W = reinterpret_cast<T*>(Co + 2 * kPanelWarps + 4);   // 16-byte aligned
+    Ch = reinterpret_cast<int*>(W + (size_t)s * s);
+    Pm = Ch + 2 * kPanelWarps;
+  }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kFactorThreads)
-lu_factor_kernel(const T* __restrict__ in, T* __restrict__ out,
-                 int32_t* __restrict__ perm, int s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* W = reinterpret_cast<T*>(smem_raw);
-  __shared__ int s_piv;
+__host__ __device__ constexpr size_t panel_smem_bytes(int s) {
+  return (2 * kPanelWarps * (kPW + 1) + (size_t)s * s) * sizeof(T) +
+         2 * kPanelWarps * sizeof(typename KeyOf<T>::type) +
+         (2 * kPanelWarps + 4) * sizeof(unsigned) +
+         (2 * kPanelWarps + (size_t)s) * sizeof(int);
+}
 
+// A candidate's order word: larger for a smaller position; the warp in the
+// low byte. Among equal keys the largest word is the first position.
+__device__ __forceinline__ unsigned order_word(int pos, int warp) {
+  return ((0xffffu - (unsigned)pos) << 8) | (unsigned)warp;
+}
+
+// The winner's order word among the kPanelWarps candidates at Ck, Co
+// (entries at and past nw do not count): the largest key, then the
+// largest order word. Loaded as vectors, picked by selects, no branch.
+__device__ __forceinline__ unsigned pick_winner(const unsigned* Ck,
+                                                const unsigned* Co, int nw) {
+  const uint4 k0 = *reinterpret_cast<const uint4*>(Ck);
+  const uint4 k1 = *reinterpret_cast<const uint4*>(Ck + 4);
+  const uint4 o0 = *reinterpret_cast<const uint4*>(Co);
+  const uint4 o1 = *reinterpret_cast<const uint4*>(Co + 4);
+  const unsigned kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+  const unsigned oo[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+  unsigned long long c[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    c[q] = q < nw ? ((unsigned long long)kk[q] << 32) | oo[q] : 0ULL;
+#pragma unroll
+  for (int h = 1; h < 8; h *= 2) {
+#pragma unroll
+    for (int q = 0; q + h < 8; q += 2 * h)
+      c[q] = c[q] > c[q + h] ? c[q] : c[q + h];
+  }
+  return (unsigned)c[0];
+}
+__device__ __forceinline__ unsigned pick_winner(const unsigned long long* Ck,
+                                                const unsigned* Co, int nw) {
+  unsigned long long kk[8];
+#pragma unroll
+  for (int q = 0; q < 8; q += 2) {
+    const ulonglong2 t = *reinterpret_cast<const ulonglong2*>(Ck + q);
+    kk[q] = t.x;
+    kk[q + 1] = t.y;
+  }
+  const uint4 o0 = *reinterpret_cast<const uint4*>(Co);
+  const uint4 o1 = *reinterpret_cast<const uint4*>(Co + 4);
+  unsigned oo[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    kk[q] = q < nw ? kk[q] : 0ULL;
+    oo[q] = q < nw ? oo[q] : 0u;
+  }
+#pragma unroll
+  for (int h = 1; h < 8; h *= 2) {
+#pragma unroll
+    for (int q = 0; q + h < 8; q += 2 * h) {
+      const bool t = kk[q + h] > kk[q] ||
+                     (kk[q + h] == kk[q] && oo[q + h] > oo[q]);
+      kk[q] = t ? kk[q + h] : kk[q];
+      oo[q] = t ? oo[q + h] : oo[q];
+    }
+  }
+  return oo[0];
+}
+
+// 16-byte vectors of a row in shared memory
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+__device__ __forceinline__ void ld_vec(const float* p, float* o) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+}
+__device__ __forceinline__ void ld_vec(const double* p, double* o) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void st_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st_vec(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// A full panel (columns p0 .. p0 + 31) over more than 32 rows, by the
+// whole block, one block barrier a column. Thread t holds the row at
+// position p0 + t (at the start) in registers; the last nc threads each
+// own a column right of the panel, p0 + 32 + (nt - 1 - t), and build its
+// 32 rows of U as the pivot rows arrive. A step: after the barrier every
+// thread picks the same winner among the warps' candidates (the largest
+// key, the smallest position among equal keys; vector loads and selects)
+// and reads its pivot reciprocal; the rows below read the pivot row as
+// vectors, update their next column, start the next step's warp
+// reductions, then update the rest of the row; each warp offers its next
+// candidate in the other buffer; the column owners take the pivot row's
+// multipliers.
+template <typename T>
+__device__ __forceinline__ void factor_panel_block(const PanelSmem<T>& sm,
+                                                   int32_t* __restrict__ prec,
+                                                   int s, int p0, int nw,
+                                                   int nc, int tid, int nt) {
+  using K = typename KeyOf<T>::type;
+  constexpr int V = kVec<T>;
+  const int warp = tid >> 5;
+  const bool rows = warp < nw;               // the warp holds rows
+  const bool has_row = tid < s - p0;
+  const int ph = has_row ? sm.Pm[p0 + tid] : 0;
+  int pos = has_row ? p0 + tid : s + tid;    // no row: a position never used
+  T v[kPW];
+#pragma unroll
+  for (int c = 0; c < kPW; ++c)
+    v[c] = has_row ? sm.W[(size_t)ph * s + p0 + c] : T(0);
+  const int q = nt - 1 - tid;
+  const bool has_col = q < nc;
+  const int col = p0 + kPW + q;
+  T x[kPW];               // column col's rows of U, by step
+  int rec = 0;            // thread j: step p0 + j's pivot position
+
+  // step 0's candidates
+  if (rows) {
+    const K key = has_row ? pivot_key(v[0]) : K(0);
+    const T dn = pivot_recip(v[0]);
+    const K best = warp_max(key);
+    const unsigned bpos = __reduce_min_sync(
+        kAll, key == best ? (unsigned)pos : 0xffffffffu);
+    if ((unsigned)pos == bpos) {
+#pragma unroll
+      for (int c = 0; c < kPW; c += V) st_vec(sm.Cv + warp * kPW + c, v + c);
+      sm.Cd[warp] = dn;
+      sm.Ck[warp] = best;
+      sm.Co[warp] = order_word(pos, warp);
+      sm.Ch[warp] = ph;
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < kPW; ++jj) {
+    const int j = p0 + jj;
+    const int b = (jj & 1) * kPanelWarps;
+    __syncthreads();                 // step jj's candidates are offered
+    const unsigned won = pick_winner(sm.Ck + b, sm.Co + b, nw);
+    const int bw = (int)(won & 0xffu);
+    const int r = (int)(0xffffu - (won >> 8));
+    const T* urow = sm.Cv + (b + bw) * kPW;
+    const T d = sm.Cd[b + bw];
+    if (tid == jj) rec = r;
+    if (pos == r) pos = j;
+    else if (pos == j) pos = r;
+    const bool upd = has_row && pos > j;
+    if (rows) {
+      T u[kPW];           // the pivot row right of the next column's
+#pragma unroll
+      for (int c = 0; c < kPW; c += V)
+        if (c + V > jj + 1) ld_vec(urow + c, u + c);
+      const T l = v[jj] * d;
+      // the next column, then the next step's warp reductions
+      K nbest = K(0);
+      unsigned npos = 0xffffffffu;
+      T nd = T(0);
+      if (jj + 1 < kPW) {
+        if (upd) v[jj + 1] = v[jj + 1] - l * u[jj + 1];
+        const K key = upd ? pivot_key(v[jj + 1]) : K(0);
+        nd = pivot_recip(v[jj + 1]);
+        nbest = warp_max(key);
+        npos = __reduce_min_sync(kAll, key == nbest ? (unsigned)pos
+                                                    : 0xffffffffu);
+      }
+#pragma unroll
+      for (int c = jj + 2; c < kPW; ++c)
+        v[c] = upd ? v[c] - l * u[c] : v[c];
+      if (upd) v[jj] = l;
+      // offer step jj + 1's candidate
+      if (jj + 1 < kPW && (unsigned)pos == npos) {
+        const int b1 = ((jj + 1) & 1) * kPanelWarps;
+#pragma unroll
+        for (int c = 0; c < kPW; c += V)
+          st_vec(sm.Cv + (b1 + warp) * kPW + c, v + c);
+        sm.Cd[b1 + warp] = nd;
+        sm.Ck[b1 + warp] = nbest;
+        sm.Co[b1 + warp] = order_word(pos, warp);
+        sm.Ch[b1 + warp] = ph;
+      }
+    }
+    // column col's row j of U: the pivot row's multipliers in step order
+    if (has_col) {
+      const int phr = sm.Ch[b + bw];
+      T xv = sm.W[(size_t)phr * s + col];
+#pragma unroll
+      for (int c = 0; c < kPW; c += V) {
+        if (c < jj) {
+          T u[V];
+          ld_vec(urow + c, u);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if (c + e < jj) xv = xv - u[e] * x[c + e];
+        }
+      }
+      x[jj] = xv;
+      sm.W[(size_t)phr * s + col] = xv;
+    }
+  }
+  // every thread read its map entry before the first barrier
+  if (has_row) {
+#pragma unroll
+    for (int c = 0; c < kPW; ++c) sm.W[(size_t)ph * s + p0 + c] = v[c];
+    sm.Pm[pos] = ph;
+  }
+  if (tid < kPW) prec[p0 + tid] = rec;
+}
+
+// The last panel (columns p0 .. s - 1, at most 32 rows and columns), by
+// one warp (warp_lu), no barrier.
+template <typename T>
+__device__ __forceinline__ void factor_panel_warp(const PanelSmem<T>& sm,
+                                                  int32_t* __restrict__ prec,
+                                                  int s, int p0, int lane) {
+  const int w = s - p0;
+  const bool has_row = lane < w;
+  const int ph = has_row ? sm.Pm[p0 + lane] : 0;
+  int pos = has_row ? p0 + lane : s + lane;
+  T v[kPW];
+#pragma unroll
+  for (int c = 0; c < kPW; ++c)
+    v[c] = (has_row && c < w) ? sm.W[(size_t)ph * s + p0 + c] : T(0);
+  int rec = 0;
+  warp_lu<T, kPW>(v, pos, rec, has_row, p0, w, lane);
+  __syncwarp();           // every lane has read its map entry
+  if (has_row) {
+#pragma unroll
+    for (int c = 0; c < kPW; ++c)
+      if (c < w) sm.W[(size_t)ph * s + p0 + c] = v[c];
+    sm.Pm[pos] = ph;
+  }
+  if (lane < w) prec[p0 + lane] = rec;
+}
+
+// Rows r0 .. r0 + rn - 1 (positions, rn <= kRT) and columns c0 .. c0 + cw
+// - 1 (cw <= 32 CT) of the trailing block take the panel's 32 updates in
+// registers, lane l holding columns c0 + l + 32 q (a clamped row or column
+// is computed twice and stored once). ub[k]: where U row p0 + k starts.
+template <typename T, int CT>
+__device__ __forceinline__ void trailing_tile(const PanelSmem<T>& sm,
+                                              const int* ub, int s, int p0,
+                                              int r0, int rn, int c0, int cw,
+                                              int lane) {
+  int rb[kRT], cc[CT];
+#pragma unroll
+  for (int p = 0; p < kRT; ++p)
+    rb[p] = sm.Pm[r0 + (p < rn ? p : rn - 1)] * s;
+#pragma unroll
+  for (int q = 0; q < CT; ++q) {
+    const int c = lane + 32 * q;
+    cc[q] = c0 + (c < cw ? c : cw - 1);
+  }
+  T acc[kRT][CT];
+#pragma unroll
+  for (int p = 0; p < kRT; ++p) {
+#pragma unroll
+    for (int q = 0; q < CT; ++q) acc[p][q] = sm.W[rb[p] + cc[q]];
+  }
+#pragma unroll
+  for (int k = 0; k < kPW; ++k) {
+    T l[kRT], u[CT];
+#pragma unroll
+    for (int p = 0; p < kRT; ++p) l[p] = sm.W[rb[p] + p0 + k];
+#pragma unroll
+    for (int q = 0; q < CT; ++q) u[q] = sm.W[ub[k] + cc[q]];
+#pragma unroll
+    for (int p = 0; p < kRT; ++p) {
+#pragma unroll
+      for (int q = 0; q < CT; ++q) acc[p][q] = acc[p][q] - l[p] * u[q];
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kRT; ++p) {
+#pragma unroll
+    for (int q = 0; q < CT; ++q)
+      if (p < rn && lane + 32 * q < cw) sm.W[rb[p] + cc[q]] = acc[p][q];
+  }
+}
+
+// The trailing block (positions and columns p0 + 32 .. s - 1): a warp per
+// 4 rows and up to 128 columns.
+template <typename T>
+__device__ __forceinline__ void panel_trailing(const PanelSmem<T>& sm, int s,
+                                               int p0, int tid, int nt) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int i0 = p0 + kPW;
+  const int n = s - i0;
+  const int ngr = (n + kRT - 1) / kRT;
+  const int nch = (n + 127) / 128;
+  int ub[kPW];
+#pragma unroll
+  for (int k = 0; k < kPW; ++k) ub[k] = sm.Pm[p0 + k] * s;
+  for (int task = warp; task < ngr * nch; task += nwarps) {
+    const int g = task / nch;
+    const int c0 = i0 + (task - g * nch) * 128;
+    const int cw = min(128, s - c0);
+    const int r0 = i0 + g * kRT;
+    const int rn = min(kRT, s - r0);
+    switch ((cw + 31) >> 5) {
+      case 1: trailing_tile<T, 1>(sm, ub, s, p0, r0, rn, c0, cw, lane); break;
+      case 2: trailing_tile<T, 2>(sm, ub, s, p0, r0, rn, c0, cw, lane); break;
+      case 3: trailing_tile<T, 3>(sm, ub, s, p0, r0, rn, c0, cw, lane); break;
+      default: trailing_tile<T, 4>(sm, ub, s, p0, r0, rn, c0, cw, lane);
+    }
+  }
+}
+
+// s > 32: one block per matrix, 32-column panels.
+template <typename T>
+__global__ void __launch_bounds__(kPanelThreads, sizeof(T) == 4 ? 2 : 1)
+lu_factor_panel_kernel(const T* __restrict__ in, T* __restrict__ out,
+                       int32_t* __restrict__ perm, int s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PanelSmem<T> sm(smem_raw, s);
   const int64_t mat = blockIdx.x;
-  const T* src = in + mat * (int64_t)s * s;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+  const T* src = in + mat * (int64_t)s * s;
+  int32_t* prec = perm + mat * s;
 
-  for (int i = tid; i < s * s; i += nt) W[i] = src[i];
+  constexpr int V = kVec<T>;
+  if ((s * s) % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int e = tid * V; e < s * s; e += nt * V)     // 16-byte copies
+      __pipeline_memcpy_async(sm.W + e, src + e, 16);
+  } else {
+    for (int e = tid; e < s * s; e += nt)
+      __pipeline_memcpy_async(sm.W + e, src + e, sizeof(T));
+  }
+  __pipeline_commit();
+  for (int i = tid; i < s; i += nt) sm.Pm[i] = i;
+  __pipeline_wait_prior(0);
   __syncthreads();
 
-  for (int j = 0; j < s; ++j) {
-    // 1. pivot row: first index of the largest |W[i, j]|, i >= j. A NaN
-    //    counts as +inf, so the row index always stays in range.
-    if (warp == 0) {
-      T best = T(-1);
-      int bi = s;
-      for (int i = j + lane; i < s; i += 32) {
-        T a = W[i * s + j];
-        T v = (a != a) ? pos_inf<T>() : fabs(a);
-        if (v > best) { best = v; bi = i; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        T ob = __shfl_down_sync(0xffffffffu, best, off);
-        int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-      }
-      if (lane == 0) {
-        s_piv = bi;
-        perm[mat * s + j] = bi;
-      }
-    }
-    __syncthreads();
-
-    // 2. swap whole rows j and r (LAPACK convention: the stored
-    //    multipliers move with their rows)
-    const int r = s_piv;
-    if (r != j) {
-      for (int c = tid; c < s; c += nt) {
-        T t = W[j * s + c];
-        W[j * s + c] = W[r * s + c];
-        W[r * s + c] = t;
-      }
-      __syncthreads();
-    }
-
-    // 3. + 4. multipliers (rows > j) and the rank-1 update of the
-    //    trailing block; one warp per row, lanes over columns
-    const T d = pivot_recip(W[j * s + j]);
-    for (int i = j + 1 + warp; i < s; i += nwarps) {
-      const T l = W[i * s + j] * d;
-      for (int c = j + 1 + lane; c < s; c += 32) {
-        W[i * s + c] = W[i * s + c] - l * W[j * s + c];
-      }
-      __syncwarp();  // every lane has read W[i, j] before it is replaced
-      if (lane == 0) W[i * s + j] = l;
-    }
-    __syncthreads();
+  for (int p0 = 0; p0 < s; p0 += kPW) {
+    const int nw = (s - p0 + 31) >> 5;      // warps holding the panel's rows
+    if (nw > 1)
+      factor_panel_block<T>(sm, prec, s, p0, nw, max(0, s - p0 - kPW), tid,
+                            nt);
+    else if (warp == 0)
+      factor_panel_warp<T>(sm, prec, s, p0, lane);
+    __syncthreads();                          // the panel is factored
+    if (p0 + kPW >= s) break;
+    panel_trailing<T>(sm, s, p0, tid, nt);
+    __syncthreads();                          // the trailing block is done
   }
 
   T* dst = out + mat * (int64_t)s * s;
-  for (int i = tid; i < s * s; i += nt) dst[i] = W[i];
+  if (s % V == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int i = warp; i < s; i += nt >> 5) {         // 16-byte copies
+      const T* row = sm.W + (size_t)sm.Pm[i] * s;
+      for (int c = lane * V; c < s; c += 32 * V) {
+        T t[V];
+        ld_vec(row + c, t);
+        st_vec(dst + (int64_t)i * s + c, t);
+      }
+    }
+  } else {
+    for (int i = warp; i < s; i += nt >> 5) {
+      const T* row = sm.W + (size_t)sm.Pm[i] * s;
+      for (int c = lane; c < s; c += 32) dst[(int64_t)i * s + c] = row[c];
+    }
+  }
 }
 
 template <typename T>
 int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
                   void* stream) {
-  const size_t smem = (size_t)s * s * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      lu_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s <= kPW) {
+    const unsigned blocks = (unsigned)((nb + kSmallWarps - 1) / kSmallWarps);
+    if (s <= 16) {
+      lu_factor_warp_kernel<T, 16><<<blocks, kSmallWarps * 32,
+                                     kSmallWarps * 16 * 17 * sizeof(T), st>>>(
+          in, out, perm, nb, s);
+    } else {
+      lu_factor_warp_kernel<T, 32><<<blocks, kSmallWarps * 32,
+                                     kSmallWarps * 32 * 33 * sizeof(T), st>>>(
+          in, out, perm, nb, s);
+    }
+    return (int)cudaGetLastError();
+  }
+  const panel::DeviceInfo* d = nullptr;
+  cudaError_t e = panel::device_info(&d);
   if (e != cudaSuccess) return (int)e;
-  lu_factor_kernel<T><<<(unsigned)nb, kFactorThreads, smem,
-                        (cudaStream_t)stream>>>(in, out, perm, s);
+  const size_t smem = panel_smem_bytes<T>(s);
+  if (smem > (size_t)d->cap) return (int)cudaErrorInvalidValue;
+  // the kernel may use all of a block's shared memory: set once per device
+  static bool ready[panel::kMaxDevices];
+  if (!ready[d->dev]) {
+    e = cudaFuncSetAttribute(lu_factor_panel_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d->cap);
+    if (e != cudaSuccess) return (int)e;
+    ready[d->dev] = true;
+  }
+  lu_factor_panel_kernel<T><<<(unsigned)nb, kPanelThreads, smem, st>>>(
+      in, out, perm, s);
   return (int)cudaGetLastError();
 }
 
@@ -164,6 +660,13 @@ int lu_solve_f32(const float* F, const int32_t* perm, const float* B,
 int lu_solve_f64(const double* F, const int32_t* perm, const double* B,
                  double* X, long long nb, int s, int K, void* stream) {
   return launch_solve<double>(F, perm, B, X, nb, s, K, stream);
+}
+
+// Shared memory a launch of lu_factor at s x s needs (esize: 4 or 8).
+int lu_factor_shared_bytes(int s, int esize) {
+  if (s <= kPW) return kSmallWarps * (s <= 16 ? 16 * 17 : 32 * 33) * esize;
+  return (int)(esize == 8 ? panel_smem_bytes<double>(s)
+                          : panel_smem_bytes<float>(s));
 }
 
 int lu_max_shared_bytes() {

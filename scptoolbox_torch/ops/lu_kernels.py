@@ -17,16 +17,19 @@ into scptoolbox_torch/_build/ and loaded with ctypes) or raises; on a CPU
 tensor it runs the plain version. Each wrapper counts its kernel launches in
 `<wrapper>.launches`.
 
-What bounds the kernels on the H100, and what the design does about it, is
+What bounds the kernels on the H100, and what the designs do about it, is
 noted at the top of the CUDA source: both are latency-bound chains of s
-(factor) or 2s (solve) dependent steps. The factor keeps its matrix in
-shared memory with one or two barriers a step; the solve goes in 32-row
-panels (csrc/panel_solve.cuh), three barriers a panel, the factor's panels
-staged in shared memory ahead of their use.
+(factor) or 2s (solve) dependent steps. The factor takes a warp per matrix
+up to s = 32 (rows in the lanes' registers, no block barrier) and above it
+a block per matrix in 32-column panels (one named barrier a column inside a
+panel, three block barriers a panel, virtual row swaps); the solve goes in
+32-row panels (csrc/panel_solve.cuh), three barriers a panel, the factor's
+panels staged in shared memory ahead of their use.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -39,7 +42,7 @@ LIB = cuda_lib.CudaLibrary("lu_kernels", {
     "lu_factor_f32": (P, P, P, L, I, P), "lu_factor_f64": (P, P, P, L, I, P),
     "lu_solve_f32": (P, P, P, P, L, I, I, P),
     "lu_solve_f64": (P, P, P, P, L, I, I, P),
-    "lu_max_shared_bytes": ()})
+    "lu_factor_shared_bytes": (I, I), "lu_max_shared_bytes": ()})
 
 _TINY = 1e-30
 
@@ -111,6 +114,19 @@ def lu_solve_plain(fac, B: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _factor_shared_bytes(s: int, esize: int) -> int:
+    """Shared memory one lu_factor launch at s x s needs."""
+    return int(LIB.load().lu_factor_shared_bytes(s, esize))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_shared_bytes(index: int) -> int:
+    """Shared memory a block may use on card `index` (asked once)."""
+    with torch.cuda.device(index):
+        return int(LIB.load().lu_max_shared_bytes())
+
+
 def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched pivoted LU of (..., s, s): the CUDA kernel on the card, the
     plain version on the CPU."""
@@ -126,9 +142,8 @@ def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     nb = Mc.numel() // max(s * s, 1)
     if nb == 0 or s == 0:
         return out, perm
-    need = s * s * Mc.element_size()
-    with torch.cuda.device(M.device):
-        cap = int(LIB.load().lu_max_shared_bytes())
+    need = _factor_shared_bytes(s, Mc.element_size())
+    cap = _max_shared_bytes(M.device.index)
     if need > cap:
         raise ValueError(f"lu_factor: a {s}x{s} {M.dtype} block needs "
                          f"{need} bytes of shared memory, the card allows "

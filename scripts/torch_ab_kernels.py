@@ -41,7 +41,8 @@ def time_tree(root, groups):
     from scptoolbox_torch.ops import gj_kernels as gk
     from scptoolbox_torch.ops import lu_kernels as lk
 
-    cuda_lib.build_all([lk.LIB, ck.LIB, gk.LIB])
+    libs = {"lu_factor": lk.LIB, "lu_solve": lk.LIB, "gj_inverse": gk.LIB}
+    cuda_lib.build_all({libs.get(g[0], ck.LIB) for g in groups})
     gen = torch.Generator(device="cuda")
     out = []
     for kernel, dtname, nb, n, K in groups:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Phase timeline inside the port's substitution and Cholesky kernels
+"""Phase timeline inside the port's LU, substitution and Cholesky kernels
 (scptoolbox_torch/csrc/) on one GPU, from %globaltimer stamps.
 
-    python3 scripts/torch_kernel_timeline.py [--tree DIR] [--n N]
+    python3 scripts/torch_kernel_timeline.py [--tree DIR] [--n N] [--only K,..]
 
 No profiler on the card sees inside a kernel, so this copies the kernel
 sources of a tree (this checkout, or DIR: an unpacked tree of another
@@ -13,10 +13,12 @@ _archive/timeline/ and loads them with ctypes. The stamps know the designs
 of both trees: where a design's anchor is missing from a source, its
 stamps are left out.
 
-Runs, each once after a warm-up launch: cholesky at 1 x N^2 (float64,
-N = 876 by default); solve_lower_t and solve_lower at 1 x N, K = 2 and 566
-(float64); solve_lower at 128 x 314, K = 2 and 64 (float32); lu_solve at
-512 x 158, K = 2 and 158 (float32). Prints, per run, the span of block 0
+Runs (--only picks some), each once after a warm-up launch: cholesky at
+1 x N^2 (float64, N = 876 by default); solve_lower_t and solve_lower at
+1 x N, K = 2 and 566 (float64); solve_lower at 128 x 314, K = 2 and 64
+(float32); lu_solve at 512 x 158, K = 2 and 158 (float32); lu_factor at
+512 x 158^2, 32 x 145^2 and 2048 x 29^2 (float32) and 64 x 158^2
+(float64). Prints, per run, the span of block 0
 and the time summed over each kind of phase, with its count, and the
 kernel's own time by CUDA events over 20 launches. The stamps cost a few
 hundred nanoseconds each.
@@ -37,10 +39,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAMP = '''
 __device__ unsigned long long g_tlog[8192];
 __device__ int g_tag[8192];
+__device__ int g_slot;
 #define TS(tag) if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 \\
-  && slot_ < 8192) { unsigned long long t_; \\
+  && g_slot < 8192) { unsigned long long t_; \\
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \\
-    g_tlog[slot_] = t_; g_tag[slot_++] = tag; }
+    g_tlog[g_slot] = t_; g_tag[g_slot++] = tag; }
 '''
 READ = '''
 extern "C" int read_tlog(unsigned long long* h, int* g, int n) {
@@ -49,6 +52,7 @@ extern "C" int read_tlog(unsigned long long* h, int* g, int n) {
 }
 extern "C" int clear_tlog() {
   static int z[8192];
+  cudaMemcpyToSymbol(g_slot, z, sizeof(int));
   return (int)cudaMemcpyToSymbol(g_tag, z, sizeof(z));
 }
 '''
@@ -115,6 +119,68 @@ EDITS = [
     ("panel_solve.cuh",
      "    X[(int64_t)i * K + c] = Xs[(int64_t)i * kb + c];\n  }\n}",
      "    X[(int64_t)i * K + c] = Xs[(int64_t)i * kb + c];\n  }\n  TS(27);\n}"),
+    # the one-block lu_factor of the earlier design (three barriers a step)
+    ("lu_kernels.cu",
+     "  for (int i = tid; i < s * s; i += nt) W[i] = src[i];\n"
+     "  __syncthreads();\n\n  for (int j = 0; j < s; ++j) {",
+     "  int slot_ = 0; TS(60);\n"
+     "  for (int i = tid; i < s * s; i += nt) W[i] = src[i];\n"
+     "  __syncthreads(); TS(61);\n\n  for (int j = 0; j < s; ++j) {"),
+    ("lu_kernels.cu", "    // 2. swap whole rows",
+     "    TS(62);\n    // 2. swap whole rows"),
+    ("lu_kernels.cu", "    // 3. + 4. multipliers",
+     "    TS(63);\n    // 3. + 4. multipliers"),
+    ("lu_kernels.cu",
+     "    __syncthreads();\n  }\n\n  T* dst = out + mat * (int64_t)s * s;\n"
+     "  for (int i = tid; i < s * s; i += nt) dst[i] = W[i];\n}",
+     "    TS(64); __syncthreads(); TS(65);\n  }\n\n"
+     "  T* dst = out + mat * (int64_t)s * s;\n"
+     "  for (int i = tid; i < s * s; i += nt) dst[i] = W[i];\n  TS(66);\n}"),
+    # lu_factor's panel design (s > 32)
+    ("lu_kernels.cu", "  const PanelSmem<T> sm(smem_raw, s);\n",
+     "  const PanelSmem<T> sm(smem_raw, s);\n  TS(70);\n"),
+    ("lu_kernels.cu",
+     "  __syncthreads();\n\n  for (int p0 = 0; p0 < s; p0 += kPW) {",
+     "  __syncthreads(); TS(71);\n\n  for (int p0 = 0; p0 < s; p0 += kPW) {"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                          // the panel is factored\n",
+     "    TS(72); __syncthreads(); TS(73);\n"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                          // the trailing block is "
+     "done\n", "    TS(76); __syncthreads(); TS(77);\n"),
+    ("lu_kernels.cu",
+     "      for (int c = lane; c < s; c += 32) dst[(int64_t)i * s + c] = "
+     "row[c];\n    }\n  }\n}",
+     "      for (int c = lane; c < s; c += 32) dst[(int64_t)i * s + c] = "
+     "row[c];\n    }\n  }\n  TS(78);\n}"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                 // step jj's candidates are "
+     "offered\n",
+     "    TS(90); __syncthreads(); TS(91);\n"),
+    ("lu_kernels.cu", "    if (rows) {\n      T u[kPW];",
+     "    TS(92);\n    if (rows) {\n      T u[kPW];"),
+    ("lu_kernels.cu",
+     "#pragma unroll\n      for (int c = jj + 2; c < kPW; ++c)\n"
+     "        v[c] = upd",
+     "      TS(93);\n#pragma unroll\n      for (int c = jj + 2; c < kPW; ++c)\n"
+     "        v[c] = upd"),
+    ("lu_kernels.cu", "      // offer step jj + 1's candidate\n",
+     "      TS(94);\n      // offer step jj + 1's candidate\n"),
+    ("lu_kernels.cu", "    // column col's row j of U: the pivot row's",
+     "    TS(95);\n    // column col's row j of U: the pivot row's"),
+    # lu_factor's warp design (s <= 32)
+    ("lu_kernels.cu",
+     "  T* dst = out + mat * s * s;\n\n  for (int i = 0; i < s; ++i)",
+     "  T* dst = out + mat * s * s;\n  int slot_ = 0; TS(80);\n\n"
+     "  for (int i = 0; i < s; ++i)"),
+    ("lu_kernels.cu", "  int pos = lane;", "  TS(81);\n  int pos = lane;"),
+    ("lu_kernels.cu",
+     "  __syncwarp();\n  if (has_row) {\n#pragma unroll\n"
+     "    for (int c = 0; c < KS; ++c)\n      if (c < s) S[pos * ld + c]",
+     "  TS(82);\n  __syncwarp();\n  if (has_row) {\n#pragma unroll\n"
+     "    for (int c = 0; c < KS; ++c)\n      if (c < s) S[pos * ld + c]"),
+    ("lu_kernels.cu", "  if (lane < s) perm[mat * s + lane] = rec;\n}",
+     "  if (lane < s) perm[mat * s + lane] = rec;\n  TS(83);\n}"),
     # the one-block lu_solve of the earlier design (row by row)
     ("lu_kernels.cu", "  const bool active = row0 < rstride && col < kw;\n",
      "  const bool active = row0 < rstride && col < kw;\n"
@@ -150,10 +216,27 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (26, 27): "write X",
          (30, 31): "permutation (thread 0)", (31, 32): "gather + barrier",
          (32, 33): "forward (a barrier a row)",
-         (33, 34): "backward (a barrier a row)", (34, 35): "write X"}
+         (33, 34): "backward (a barrier a row)", (34, 35): "write X",
+         (60, 61): "load", (61, 62): "pivot search + barrier",
+         (65, 62): "pivot search + barrier", (62, 63): "swap (+ barrier)",
+         (63, 64): "multipliers + rank-1 update", (64, 65): "barrier 3",
+         (65, 66): "write",
+         (70, 71): "load", (71, 90): "panel start",
+         (77, 90): "panel start", (90, 91): "step barrier",
+         (91, 92): "pick the winner",
+         (92, 93): "pivot row, next column, reductions",
+         (93, 94): "rest of the row update", (94, 95): "offer candidate",
+         (95, 90): "column of U", (95, 72): "write the panel back",
+         (72, 73): "barrier after panel", (73, 76): "trailing update",
+         (76, 77): "barrier after trailing", (73, 78): "write",
+         (71, 72): "panel (one warp)", (77, 72): "panel (one warp)",
+         (80, 81): "load", (81, 82): "factor (warp)", (82, 83): "write"}
 
 
-def build(tree, tag):
+RUNS = ("cholesky", "solve_lower_t", "solve_lower", "lu_solve", "lu_factor")
+
+
+def build(tree, tag, sources):
     """Stamped copies of tree's kernel sources, built; {source: CDLL}."""
     src = os.path.join(tree, "scptoolbox_torch", "csrc")
     out = os.path.join(REPO, "_archive", "timeline", tag)
@@ -173,7 +256,7 @@ def build(tree, tag):
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     libs, procs = {}, []
-    for name in ("lu_kernels.cu", "chol_kernels.cu"):
+    for name in sources:
         so = os.path.join(out, f"lib{name[:-3]}.so")
         procs.append((name, so, subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -222,15 +305,20 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--n", type=int, default=876)
+    ap.add_argument("--only", default=",".join(RUNS),
+                    help="comma-separated subset of " + ",".join(RUNS))
     args = ap.parse_args()
     n = args.n
+    only = args.only.split(",")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     tree = os.path.abspath(args.tree)
     print(smi, "| tree:", os.path.relpath(tree, REPO), flush=True)
-    libs = build(tree, "this" if tree == REPO else "other")
-    ch, lu = libs["chol_kernels.cu"], libs["lu_kernels.cu"]
+    sources = ["lu_kernels.cu"] + (["chol_kernels.cu"] if {
+        "cholesky", "solve_lower_t", "solve_lower"} & set(only) else [])
+    libs = build(tree, "this" if tree == REPO else "other", sources)
+    ch, lu = libs.get("chol_kernels.cu"), libs["lu_kernels.cu"]
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     st = P(torch.cuda.current_stream().cuda_stream)
     g = torch.Generator(device="cuda")
@@ -248,19 +336,38 @@ def main():
                                         st)
 
     f64 = torch.float64
+    if "lu_factor" in only:
+        for nb, m, dt in ((512, 158, torch.float32), (32, 145, torch.float32),
+                          (64, 158, f64), (2048, 29, torch.float32)):
+            A = torch.randn(nb, m, m, generator=g, device="cuda", dtype=dt)
+            A.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
+            F = torch.empty_like(A)
+            rec = torch.empty(nb, m, dtype=torch.int32, device="cuda")
+            fn = getattr(lu, "lu_factor_f32" if dt == torch.float32
+                         else "lu_factor_f64")
+            run = (lambda fn=fn, A=A, F=F, rec=rec, nb=nb, m=m:
+                   fn(P(A.data_ptr()), P(F.data_ptr()), P(rec.data_ptr()),
+                      L(nb), I(m), st))
+            report(lu, run, f"lu_factor {nb} x {m}^2 {str(dt)[6:]}:")
+    if "cholesky" not in only and "solve_lower_t" not in only \
+            and "solve_lower" not in only and "lu_solve" not in only:
+        return 0
     H = spd(1, n, f64)
     Lf = torch.empty_like(H)
     chol = lambda: ch.cholesky_f64(P(H.data_ptr()), P(Lf.data_ptr()), L(1),
                                    I(n), st)
     chol()
-    report(ch, chol, f"cholesky 1 x {n}^2 float64:")
+    if "cholesky" in only:
+        report(ch, chol, f"cholesky 1 x {n}^2 float64:")
     for fn in ("solve_lower_t", "solve_lower"):
+        if fn not in only:
+            continue
         for K in (2, 566):
             report(ch, run_solve(ch, f"{fn}_f64", Lf, 1, n, K, f64),
                    f"{fn} 1 x {n}, K={K} float64:")
     Hb = spd(128, 314, torch.float32)
     Lb = torch.linalg.cholesky(Hb).contiguous()   # any lower factor does
-    for K in (2, 64):
+    for K in ((2, 64) if "solve_lower" in only else ()):
         report(ch, run_solve(ch, "solve_lower_f32", Lb, 128, 314, K,
                              torch.float32),
                f"solve_lower 128 x 314, K={K} float32:")
@@ -269,7 +376,7 @@ def main():
     F, piv = torch.linalg.lu_factor(M)
     F = F.contiguous()
     perm = (piv - 1).to(torch.int32).contiguous()
-    for K in (2, 158):
+    for K in ((2, 158) if "lu_solve" in only else ()):
         B = torch.randn(512, 158, K, generator=g, device="cuda")
         X = torch.empty_like(B)
         run = lambda: lu.lu_solve_f32(P(F.data_ptr()), P(perm.data_ptr()),

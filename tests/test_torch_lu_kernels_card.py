@@ -49,7 +49,7 @@ def test_kernels_match_plain_on_card(card, dtype, tol, nb, s, Ks):
     F, P = lk.lu_factor(M)
     Fp, Pp = lk.lu_factor_plain(M)
     assert torch.equal(P, Pp)
-    assert (F - Fp).abs().max() <= tol * Fp.abs().max()
+    assert torch.equal(F, Fp)
     for K in Ks:
         B = torch.randn(nb, s, K, dtype=dtype, device=card)
         X = lk.lu_solve((F, P), B)
@@ -88,6 +88,59 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 def _equal_or_both_nan(a, b):
     return (torch.equal(torch.isnan(a), torch.isnan(b))
             and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
+
+
+# lu_factor's two designs (a warp per matrix up to s = 32, 32-column panels
+# above; inside the warp design 16 or 32 columns in registers; panels held
+# by one warp or several) and their switch points, at one matrix, a few, a
+# card's worth of blocks and more
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [1, 7, 512, 2048])
+@pytest.mark.parametrize("s", [1, 16, 17, 29, 31, 32, 33, 64, 65, 145, 158])
+def test_lu_factor_equals_plain_bit_for_bit(card, dtype, nb, s):
+    M = _blocks(nb, s, dtype, card)
+    F, P = lk.lu_factor(M)
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp)
+    assert torch.equal(F, Fp)
+
+
+def _hard_blocks(nb, s, dtype, device):
+    """Blocks whose pivot search meets ties after swaps (small integers,
+    repeated rows, an all-zero column), a NaN and pivots below 1e-30."""
+    rng = np.random.default_rng(s)
+    M = rng.integers(-2, 3, (nb, s, s)).astype(np.float64)
+    if s > 3:
+        M[:, 2] = M[:, 0]                # repeated rows: exact ties
+        M[:, :, 1] = 0.0                 # an all-zero column
+        M[1::4, s // 2] = M[1::4, 1]
+    if s > 5:
+        M[2::4, :, 3] *= 1e-35           # pivots below the floor (float64)
+        M[3::4, s - 1, 4] = np.nan       # a NaN in column 4, last row
+    M[0, 0, 0] = -1e-31                  # a first pivot below the floor
+    return torch.as_tensor(M, dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [1, 6, 16, 29, 32, 33, 64, 145, 158])
+def test_lu_factor_ties_nan_and_floor_like_plain(card, dtype, s):
+    M = _hard_blocks(8, s, dtype, card)
+    F, P = lk.lu_factor(M)
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp)
+    assert _equal_or_both_nan(F, Fp)
+    if s > 5:
+        assert torch.isnan(Fp[3]).any()
+
+
+@pytest.mark.cuda
+def test_lu_factor_refuses_blocks_beyond_shared_memory(card):
+    """A 200-wide float64 block (320 KB) does not fit in a block's shared
+    memory: the wrapper says so before it launches."""
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        lk.lu_factor(torch.eye(200, dtype=torch.float64, device=card)[None])
 
 
 # the panel solve at widths around its 32-row panels and at the paths'
