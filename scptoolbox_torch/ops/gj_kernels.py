@@ -14,12 +14,17 @@ quasidefinite blocks); the floor only keeps a zero pivot finite.
 On a CUDA tensor the wrapper launches the CUDA C++ kernel
 (scptoolbox_torch/csrc/gj_kernels.cu, built with nvcc for sm_90a at first
 use, see ops/cuda_lib.py) or raises; on a CPU tensor it runs the plain
-version. The plain version does the kernel's operations in the same order,
-so on the card the two agree bit for bit. `gj_inverse.launches` counts the
-kernel launches.
+version. The kernel holds each matrix in registers, on one thread block or
+on a cluster of 2-4 where one block's registers do not hold it; the
+launcher picks from s and the dtype (`plan` reports it) and takes s <= 256.
+The plain version does the kernel's operations in the same order, so on
+the card the two agree bit for bit. `gj_inverse.launches` counts the kernel
+launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,7 +34,8 @@ from scptoolbox_torch.ops.lu_kernels import _pivot_recip
 
 LIB = cuda_lib.CudaLibrary("gj_kernels", {
     "gj_inverse_f32": (P, P, L, I, P), "gj_inverse_f64": (P, P, L, I, P),
-    "gj_max_shared_bytes": ()})
+    "gj_plan_f32": (I, P), "gj_plan_f64": (I, P)})
+MAX_S = 256           # the kernel's widest tile: 8 columns a lane
 
 
 def gj_inverse_plain(M: torch.Tensor) -> torch.Tensor:
@@ -57,23 +63,31 @@ def gj_inverse(M: torch.Tensor) -> torch.Tensor:
     if M.dim() < 2 or M.shape[-2] != s:
         raise ValueError(f"gj_inverse: square blocks expected, got "
                          f"{tuple(M.shape)}")
+    if s > MAX_S:
+        raise ValueError(f"gj_inverse: blocks up to {MAX_S} wide, got {s}")
     Mc = M.contiguous()
     out = torch.empty_like(Mc)
     nb = Mc.numel() // max(s * s, 1)
     if nb == 0 or s == 0:
         return out
-    need = (s * s + 2 * s) * Mc.element_size()
-    with torch.cuda.device(M.device):
-        cap = int(LIB.load().gj_max_shared_bytes())
-    if need > cap:
-        raise ValueError(f"gj_inverse: a {s}x{s} {M.dtype} block needs "
-                         f"{need} bytes of shared memory, the card allows "
-                         f"{cap}")
     cuda_lib.launch(LIB, "gj_inverse", M.dtype, M.device, Mc.data_ptr(),
                     out.data_ptr(), nb, s)
     gj_inverse.launches += 1
     cuda_lib.record("gj_inverse", M.dtype, nb, s, s)
     return out
+
+
+def plan(s: int, dtype: torch.dtype) -> dict:
+    """The launch the kernel makes for (s, s) blocks of `dtype`: C blocks a
+    matrix, each of 16 warps holding R x CC tiles; raises where there is
+    none."""
+    out = (ctypes.c_int * 3)()
+    rc = getattr(LIB.load(), f"gj_plan_{cuda_lib.SUFFIX[dtype]}")(
+        s, ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"gj_inverse: no launch for {s}x{s} {dtype} "
+                         f"(CUDA error {rc})")
+    return dict(zip(("C", "R", "CC"), out))
 
 
 gj_inverse.launches = 0

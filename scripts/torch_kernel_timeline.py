@@ -18,7 +18,8 @@ Runs (--only picks some), each once after a warm-up launch: cholesky at
 1 x N, K = 2 and 566 (float64); solve_lower at 128 x 314, K = 2 and 64
 (float32); lu_solve at 512 x 158, K = 2 and 158 (float32); lu_factor at
 512 x 158^2, 32 x 145^2 and 2048 x 29^2 (float32) and 64 x 158^2
-(float64). Prints, per run, the span of block 0
+(float64); gj_inverse at 512 x 158^2 and 32 x 145^2 (float32), 64 x 158^2
+and 4 x 145^2 (float64). Prints, per run, the span of block 0
 and the time summed over each kind of phase, with its count, and the
 kernel's own time by CUDA events over 20 launches. The stamps cost a few
 hundred nanoseconds each.
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  (the Gauss-Jordan inputs)
 STAMP = '''
 __device__ unsigned long long g_tlog[8192];
 __device__ int g_tag[8192];
@@ -197,6 +200,44 @@ EDITS = [
      "    }\n  }\n}",
      "          b[i * kb + col] * pivot_recip(Fm[(int64_t)i * s + i]);\n"
      "    }\n  }\n  TS(35);\n}"),
+    # the one-block gj_inverse of the earlier design (two barriers a step)
+    ("gj_kernels.cu",
+     "  for (int idx = tid; idx < n2; idx += nt) W[idx] = in[idx];\n"
+     "  __syncthreads();\n",
+     "  TS(100);\n"
+     "  for (int idx = tid; idx < n2; idx += nt) W[idx] = in[idx];\n"
+     "  __syncthreads(); TS(101);\n"),
+    ("gj_kernels.cu",
+     "      colj[k] = W[k * s + j];\n    }\n    __syncthreads();\n",
+     "      colj[k] = W[k * s + j];\n    }\n"
+     "    TS(102); __syncthreads(); TS(103);\n"),
+    ("gj_kernels.cu", "      W[idx] = v;\n    }\n    __syncthreads();\n",
+     "      W[idx] = v;\n    }\n    TS(104); __syncthreads(); TS(105);\n"),
+    ("gj_kernels.cu",
+     "  for (int idx = tid; idx < n2; idx += nt) out[idx] = W[idx];\n}",
+     "  for (int idx = tid; idx < n2; idx += nt) out[idx] = W[idx];\n"
+     "  TS(106);\n}"),
+    # gj_inverse on register tiles (one barrier a step, look-ahead)
+    ("gj_kernels.cu", "  T v[R][CC];", "  TS(110);\n  T v[R][CC];"),
+    ("gj_kernels.cu",
+     "  if (C > 1) {                         // every block runs",
+     "  TS(111);\n  if (C > 1) {                         // every block runs"),
+    ("gj_kernels.cu",
+     "      if (C > 1)\n        cluster_wait();\n      else\n"
+     "        __syncthreads();\n",
+     "      TS(112);\n      if (C > 1)\n        cluster_wait();\n      else\n"
+     "        __syncthreads();\n      TS(113);\n"),
+    ("gj_kernels.cu",
+     "          cluster_arrive();\n        }\n      }\n\n"
+     "      // step j on the whole",
+     "          cluster_arrive();\n        }\n      }\n      TS(114);\n\n"
+     "      // step j on the whole"),
+    ("gj_kernels.cu", "      if (C == 1 && next && lane",
+     "      TS(116);\n      if (C == 1 && next && lane"),
+    ("gj_kernels.cu",
+     "      if (i < s && k < s) out[(int64_t)i * s + k] = v[a][b];\n    }\n}",
+     "      if (i < s && k < s) out[(int64_t)i * s + k] = v[a][b];\n    }\n"
+     "  TS(115);\n}"),
 ]
 NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (2, 3): "panel rows",
@@ -230,10 +271,22 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (72, 73): "barrier after panel", (73, 76): "trailing update",
          (76, 77): "barrier after trailing", (73, 78): "write",
          (71, 72): "panel (one warp)", (77, 72): "panel (one warp)",
-         (80, 81): "load", (81, 82): "factor (warp)", (82, 83): "write"}
+         (80, 81): "load", (81, 82): "factor (warp)", (82, 83): "write",
+         (100, 101): "load", (101, 102): "pivot, row and column j copied",
+         (105, 102): "pivot, row and column j copied",
+         (102, 103): "barrier 1", (103, 104): "update s^2 entries",
+         (104, 105): "barrier 2", (105, 106): "write",
+         (110, 111): "load", (111, 112): "first sync, step 0's row",
+         (112, 113): "barrier wait",
+         (113, 114): "reads, look-ahead row (cluster: and column, "
+         "arrive)",
+         (114, 116): "tile update",
+         (116, 112): "(one block: column j + 1)",
+         (116, 115): "write"}
 
 
-RUNS = ("cholesky", "solve_lower_t", "solve_lower", "lu_solve", "lu_factor")
+RUNS = ("cholesky", "solve_lower_t", "solve_lower", "lu_solve", "lu_factor",
+        "gj_inverse")
 
 
 def build(tree, tag, sources):
@@ -269,6 +322,11 @@ def build(tree, tag, sources):
                                   ctypes.c_int]
         libs[name] = lib
     return libs
+
+
+def checked(fn, *args):
+    rc = fn(*args)
+    assert rc == 0, f"kernel launch failed: CUDA error {rc}"
 
 
 def report(lib, run, what):
@@ -315,10 +373,12 @@ def main():
                          text=True).stdout.strip()
     tree = os.path.abspath(args.tree)
     print(smi, "| tree:", os.path.relpath(tree, REPO), flush=True)
-    sources = ["lu_kernels.cu"] + (["chol_kernels.cu"] if {
-        "cholesky", "solve_lower_t", "solve_lower"} & set(only) else [])
+    sources = [src for src, runs in (
+        ("lu_kernels.cu", {"lu_factor", "lu_solve"}),
+        ("chol_kernels.cu", {"cholesky", "solve_lower_t", "solve_lower"}),
+        ("gj_kernels.cu", {"gj_inverse"})) if runs & set(only)]
     libs = build(tree, "this" if tree == REPO else "other", sources)
-    ch, lu = libs.get("chol_kernels.cu"), libs["lu_kernels.cu"]
+    ch, lu = libs.get("chol_kernels.cu"), libs.get("lu_kernels.cu")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     st = P(torch.cuda.current_stream().cuda_stream)
     g = torch.Generator(device="cuda")
@@ -349,6 +409,18 @@ def main():
                    fn(P(A.data_ptr()), P(F.data_ptr()), P(rec.data_ptr()),
                       L(nb), I(m), st))
             report(lu, run, f"lu_factor {nb} x {m}^2 {str(dt)[6:]}:")
+    if "gj_inverse" in only:
+        gj = libs["gj_kernels.cu"]
+        for nb, m, dt in ((512, 158, torch.float32), (32, 145, torch.float32),
+                          (64, 158, f64), (4, 145, f64)):
+            Q = chip_smoke._quasidefinite(torch, nb, m, dt, g)
+            out = torch.empty_like(Q)
+            fn = getattr(gj, "gj_inverse_f32" if dt == torch.float32
+                         else "gj_inverse_f64")
+            run = (lambda fn=fn, Q=Q, out=out, nb=nb, m=m:
+                   checked(fn, P(Q.data_ptr()), P(out.data_ptr()), L(nb),
+                           I(m), st))
+            report(gj, run, f"gj_inverse {nb} x {m}^2 {str(dt)[6:]}:")
     if "cholesky" not in only and "solve_lower_t" not in only \
             and "solve_lower" not in only and "lu_solve" not in only:
         return 0
