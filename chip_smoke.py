@@ -14,6 +14,9 @@ non-zero; nothing is caught and passed over):
      LU kernels launched on that run;
   starship_f64: the same path in float64 at B=4, SOLVED costs within the
      pin's own relative 1e-3, from a guess built on the CPU as the pin's was;
+  starship_f64_block: the same float64 run without kkt_method, which the
+     auto policy resolves to the block-tridiagonal normal-equations sweep
+     (ops/block_kkt.py) on the three Cholesky-ladder kernels;
   double_integrator_crpl: batched PTR (B=128, N=31, 6 iterations,
      "staged_crpl"), every scenario feasible, LU kernels launched;
   double_integrator_schur: bench.py's double integrator exactly (B=128,
@@ -26,6 +29,10 @@ non-zero; nothing is caught and passed over):
   lcvx: the LCvx double integrator (choices 1 and 2) and the rocket
      landing's golden search (N=80) in float64, IPM (almost) optimal, costs
      within 1e-4 of their pins (the rocket's: the JAX package's own cost);
+  rendezvous_planar, rendezvous_3d: the two IMPULSE rendezvous models at
+     their pinned configurations in float64 (planar N=20 with 5 homotopy
+     rungs, 3-D N=15 with 5), SOLVED, feasible, costs within 1e-3 of their
+     pins, with the template size and the KKT path the auto policy took;
   kernels: every kernel against its plain PyTorch version at every
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
@@ -33,11 +40,16 @@ non-zero; nothing is caught and passed over):
      beside its bound and the torch.linalg call; and gj_inverse, which no
      path launches, at the Starship phases' lu_factor block shapes on
      Jacobi-equilibrated quasidefinite blocks, beside torch.linalg.inv;
+  rendezvous_full (not default): both rendezvous models at the reference
+     configurations (planar N=30 with 10 rungs, 3-D N=25 with 10), SOLVED
+     and feasible, their costs and walls recorded;
   gmres (not default): FGMRES depth of the staged KKT against IPM
      convergence on the first Starship subproblems;
   profile (not default): the main path's first SCP step split by layer on
      the host clock, and three windows of ten of its IPM loops under
      torch.profiler for the device's busy share and its busiest kernels.
+After the kernels phase, each path's kernel time (its launches x the
+wrapper time of each group) stands beside its wall.
 Prints one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Writes the full
 record to chiprun_out/chip_smoke.json.
@@ -46,6 +58,7 @@ record to chiprun_out/chip_smoke.json.
 import argparse
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +68,8 @@ import numpy as np
 
 STARSHIP_PIN = 0.652614          # tests/reference_costs.json, float64
 OSCILLATOR_PIN = 0.12862352406944982             # the same file
+RENDEZVOUS_PINS = {"rendezvous_planar": 1.1827842514296785,   # the same
+                   "rendezvous_3d": 1.5265367217265537}       # file
 # the double integrator's two pins (the same file), and for the rocket the
 # JAX package's own solve_lcvx(N=80, tol=1e-3) (tests/rocket_lcvx_reference.py
 # on the CPU): the file's rocket pin, 429.60033, is no run of the package's
@@ -358,21 +373,56 @@ def _ladder_launched(launches):
                                          "solve_lower_t"))
 
 
+def _kkt_path(solver):
+    """The KKT path a solver resolved to: its kkt_method, "block" for the
+    block sweep, or "schur" for the dense Schur KKT."""
+    from scptoolbox_torch.ops.block_kkt import StageStructure
+
+    if solver._kkt_method:
+        return solver._kkt_method
+    builder = solver.kkt_builder
+    if builder is not None and isinstance(builder.structure,
+                                          StageStructure):
+        return "block"
+    assert builder is None, builder
+    return "schur"
+
+
+def _block_ipm_loops(solver, launches):
+    """IPM loops (initialization solves included) of a run on the block
+    sweep: each loop factors once, with one cholesky launch per stage, one
+    for the arrow block and one for the equality rows' Schur complement."""
+    st = solver.kkt_builder.structure
+    per = st.N + int(st.ng > 0) + int(solver.spec.nz > 0)
+    assert launches["cholesky"] % per == 0, (launches, per)
+    return launches["cholesky"] // per
+
+
 def _run_starship(torch, lk, ck, tag, dtype, B, n_iters, cost_tol,
-                  guess_device="cuda"):
+                  guess_device="cuda", kkt_method="staged_crpl"):
     """Batched Starship PTR from B guesses spread by 2% in x: every
     scenario dynamically feasible, every SOLVED cost within cost_tol of the
-    float64 pin, both LU kernels launched on the run. The set-up (the guess
-    program, on the card on the Cholesky ladder) is recorded apart."""
+    float64 pin, the path's kernels launched on the run (staged CR: both LU
+    kernels; the block sweep: the Cholesky ladder's, one factor per IPM
+    loop). The set-up (the guess program, on the card on the Cholesky
+    ladder) is recorded apart."""
     from scptoolbox_torch.config import SCPStatus
 
     solver, setup_s, setup_launches, setup_shapes = _drive(
         torch, lk, ck, lambda: _starship_solver(torch, dtype, n_iters,
-                                                guess_device))
-    assert solver.kkt_builder is not None, "staged probe failed"
+                                                guess_device,
+                                                kkt_method=kkt_method))
+    assert solver.kkt_builder is not None, "stage probe failed"
     st = solver.kkt_builder.structure
+    block = kkt_method is None
+    if block:
+        assert _kkt_path(solver) == "block", _kkt_path(solver)
+        sizes = (f"ns={st.ns} ng={st.ng} nz={solver.spec.nz} "
+                 f"rmax={st.rmax} gmax={st.gmax}")
+    else:
+        sizes = f"s={st.ns + st.rmax} ng={st.ng} mg={st.mg}"
     log(f"[{tag}] set-up {setup_s:.1f} s: n={solver.tmpl.n} "
-        f"m={solver.tmpl.m} s={st.ns + st.rmax} ng={st.ng} mg={st.mg} "
+        f"m={solver.tmpl.m} {sizes} "
         f"launches {json.dumps(setup_launches)}")
     bx, bu, bp = _scenario_batch(torch, solver, B, 0.02)
     out, wall, launches, shapes = _drive(
@@ -398,12 +448,21 @@ def _run_starship(torch, lk, ck, tag, dtype, B, n_iters, cost_tol,
                launches=launches,
                launches_per_ipm_loop={k: v / ipm_loops
                                       for k, v in launches.items()})
+    if block:
+        rec.update(kkt="block", n=solver.tmpl.n, ns=st.ns, ng=st.ng,
+                   nz=solver.spec.nz)
     log(f"[{tag}] " + json.dumps(rec))
     assert feas.all(), f"only {int(feas.sum())}/{B} scenarios feasible"
     assert solved.any(), "no scenario SOLVED"
     assert np.all(np.isfinite(cost)), "non-finite cost"
     assert rec["cost_solved_max_rel_dev"] <= cost_tol, rec
-    assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, launches
+    if block:
+        assert _ladder_launched(launches), launches
+        assert _block_ipm_loops(solver, launches) == ipm_loops, (
+            launches, ipm_loops)
+    else:
+        assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, \
+            launches
     return rec, {tag: shapes, f"{tag}_setup": setup_shapes}
 
 
@@ -423,6 +482,14 @@ def phase_starship_f64(torch, lk, ck):
     the CPU, as the pin was made; PTR runs on the card."""
     return _run_starship(torch, lk, ck, "starship_f64", torch.float64, 4,
                          15, 1e-3, guess_device="cpu")
+
+
+def phase_starship_f64_block(torch, lk, ck):
+    """The float64 run of starship_f64 without kkt_method: the auto policy
+    takes the block sweep at n >= 600 in float64, as the JAX package's does
+    (the path its Starship pin was made on)."""
+    return _run_starship(torch, lk, ck, "starship_f64_block", torch.float64,
+                         4, 15, 1e-3, guess_device="cpu", kkt_method=None)
 
 
 DI_PARS = dict(N=31, Nsub=15, wvc=1e3, wtr=5e-3, ipm_tol=3e-6,
@@ -567,6 +634,93 @@ def phase_lcvx(torch, lk, ck):
         assert _ladder_launched(launches), (name, launches)
         rec[name] = r
         shapes[f"lcvx_{name}"] = shp
+    return rec, shapes
+
+
+def _rendezvous(torch, model, N, rungs):
+    """(a solver built for inspection, the solve) of the planar or the 3-D
+    rendezvous model at N nodes and `rungs` homotopy rungs, float64 on the
+    card."""
+    from scptoolbox_torch.models import rendezvous_3d as r3
+    from scptoolbox_torch.models import rendezvous_planar as rp
+    from scptoolbox_torch.ops.discretize import DiscretizationType
+    from scptoolbox_torch.solvers import ptr
+
+    pars = ptr.PTRParameters(N=N, Nsub=10,
+                             disc_method=DiscretizationType.IMPULSE)
+    f64 = dict(dtype=torch.float64)
+    if model == "planar":
+        return (lambda: ptr.PTR(rp.rendezvous_planar(), pars, device="cuda",
+                                **f64),
+                lambda: rp.solve_rendezvous_planar(N=N, n_hom=rungs, **f64))
+    mdl = r3.Rendezvous3DParameters(hom_steps=rungs)
+    return (lambda: ptr.PTR(r3.rendezvous_3d(mdl, N), pars, device="cuda",
+                            **f64),
+            lambda: r3.solve_rendezvous_3d(N=N, mdl=mdl, **f64))
+
+
+def _run_rendezvous(torch, lk, ck, tag, inspect, solve, pin=None):
+    """One rendezvous solve: SOLVED and feasible, the cost within 1e-3 of
+    the pin where there is one; the template size and the KKT path the auto
+    policy took come from a solver built for inspection, outside the driven
+    run."""
+    from scptoolbox_torch.config import SCPStatus
+
+    solver = inspect()
+    path = _kkt_path(solver)
+    sol, wall, launches, shapes = _drive(torch, lk, ck, solve)
+    rec = dict(N=solver.pars.N, n=solver.tmpl.n, m=solver.tmpl.m,
+               nz=solver.spec.nz, kkt=path, dtype="float64", wall_s=wall,
+               status=str(sol.status), feasible=bool(sol.feas),
+               iterations=sol.iterations, cost=sol.cost,
+               history=[dict(J_aug=h.J_aug, improv_rel=h.improv_rel,
+                             ipm_iters=h.ipm_iters, ipm_status=h.ipm_status,
+                             feas=h.feas) for h in sol.history],
+               launches=launches)
+    if path == "block":
+        st = solver.kkt_builder.structure
+        loops = _block_ipm_loops(solver, launches)
+        rec.update(ns=st.ns, ng=st.ng, ipm_loops=loops,
+                   launches_per_ipm_loop={
+                       k: v / loops if loops else math.nan
+                       for k, v in launches.items()})
+    if pin is not None:
+        rec["cost_rel_dev"] = abs(sol.cost / pin - 1.0)
+    log(f"[{tag}] " + json.dumps(rec))
+    assert sol.status == SCPStatus.SOLVED and sol.feas, rec
+    assert pin is None or rec["cost_rel_dev"] <= 1e-3, rec
+    assert np.isfinite(sol.cost), rec
+    assert _ladder_launched(launches), launches
+    return rec, shapes
+
+
+def phase_rendezvous_planar(torch, lk, ck):
+    """solve_rendezvous_planar(N=20, n_hom=5) in float64, the configuration
+    of its pin (tests/test_rendezvous_planar.py)."""
+    rec, shapes = _run_rendezvous(torch, lk, ck, "rendezvous_planar",
+                                  *_rendezvous(torch, "planar", 20, 5),
+                                  RENDEZVOUS_PINS["rendezvous_planar"])
+    return rec, {"rendezvous_planar": shapes}
+
+
+def phase_rendezvous_3d(torch, lk, ck):
+    """solve_rendezvous_3d(N=15, hom_steps=5) in float64, the configuration
+    of its pin (tests/test_rendezvous_3d.py)."""
+    rec, shapes = _run_rendezvous(torch, lk, ck, "rendezvous_3d",
+                                  *_rendezvous(torch, "3d", 15, 5),
+                                  RENDEZVOUS_PINS["rendezvous_3d"])
+    return rec, {"rendezvous_3d": shapes}
+
+
+def phase_rendezvous_full(torch, lk, ck):
+    """Both models at the reference configurations (planar N=30 with 10
+    rungs, 3-D N=25 with 10; reference tests.jl), which no pin covers:
+    SOLVED and feasible, cost and wall recorded. Not a default phase."""
+    rec, shapes = {}, {}
+    for name, N in (("planar", 30), ("3d", 25)):
+        rec[name], shapes[f"rendezvous_full_{name}"] = _run_rendezvous(
+            torch, lk, ck, f"rendezvous_full {name}",
+            *_rendezvous(torch, name, N, 10))
     return rec, shapes
 
 
@@ -736,21 +890,41 @@ def _kernel_line(record):
     return {"kernels": kernels}
 
 
+def _kernel_time(rows, shapes_by_path):
+    """{path: {kernel: s, "total": s}}: each path's launches of a group
+    times the group's wrapper time (timed at its largest batch)."""
+    ms = {(r["path"], r["kernel"], r["dtype"], r["n"], r["K"]): r["kernel_ms"]
+          for r in rows}
+    names = {"f32": "float32", "f64": "float64"}
+    out = {}
+    for path, shapes in shapes_by_path.items():
+        per = collections.Counter()
+        for (kernel, suffix, nb, n, K), cnt in shapes.items():
+            per[kernel] += cnt * ms[(path, kernel, names[suffix], n, K)] / 1e3
+        out[path] = dict(per, total=sum(per.values()))
+    return out
+
+
 PATHS = (("starship", phase_starship),
          ("starship_f64", phase_starship_f64),
+         ("starship_f64_block", phase_starship_f64_block),
          ("double_integrator_crpl", phase_double_integrator_crpl),
          ("double_integrator_schur", phase_double_integrator_schur),
          ("starship_serial_lu", phase_starship_serial_lu),
          ("oscillator", phase_oscillator),
-         ("lcvx", phase_lcvx))
+         ("lcvx", phase_lcvx),
+         ("rendezvous_planar", phase_rendezvous_planar),
+         ("rendezvous_3d", phase_rendezvous_3d))
+OPT_IN_PATHS = (("rendezvous_full", phase_rendezvous_full),)
 DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=DEFAULT,
-                    help="comma-separated phases to run; also gmres and "
-                    "profile, which are not run by default")
+                    help="comma-separated phases to run; also "
+                    "rendezvous_full, gmres and profile, which are not run "
+                    "by default")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -772,7 +946,7 @@ def main():
         log(f"[build] {os.path.relpath(path, REPO)}")
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     shapes_by_path = {}
-    for name, fn in PATHS:
+    for name, fn in PATHS + OPT_IN_PATHS:
         if name in phases:
             t0 = time.perf_counter()
             record[name], shapes = fn(torch, lk, ck)
@@ -780,6 +954,9 @@ def main():
             log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
     if "kernels" in phases:
         record["kernels"] = phase_kernels(torch, lk, ck, gk, shapes_by_path)
+        record["kernel_time_s"] = _kernel_time(record["kernels"],
+                                               shapes_by_path)
+        log("[kernel_time_s] " + json.dumps(record["kernel_time_s"]))
     for name, fn in (("gmres", phase_gmres), ("profile", phase_profile)):
         if name in phases:
             record[name] = fn(torch, lk, ck)

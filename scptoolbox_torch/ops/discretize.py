@@ -1,17 +1,21 @@
-"""FOH linearization + discretization by variational STM integration.
+"""Linearization + discretization by variational STM integration.
 
-Counterpart of `scptoolbox_tpu/ops/discretize.py` (`DLTV` :52, FOH
-`discretize` :94, `propagate` :247; IMPULSE is not ported yet). For every
-interval the variational equations of the state-transition matrix Phi and
-its inverse Psi (propagated by its own ODE dPsi/dt = -Psi A) are integrated
-around the reference with Nsub RK4 steps, giving
+Counterpart of `scptoolbox_tpu/ops/discretize.py` (`DLTV` :52, `discretize`
+:94 with its FOH and IMPULSE branches, `propagate` :247). For every interval
+the variational equations of the state-transition matrix Phi and its inverse
+Psi (propagated by its own ODE dPsi/dt = -Psi A) are integrated around the
+reference with Nsub RK4 steps, giving
 
     x_{k+1} = A_k x_k + Bm_k u_k + Bp_k u_{k+1} + F_k p + r_k + E_k v_k.
 
+FOH interpolates the input linearly over the interval. IMPULSE applies the
+input as a state jump `impulse(t_k, x_k, u_k, p)` at the node and coasts
+with u = 0 (Bp = 0).
+
 Where JAX vmaps over intervals and scans over substeps, this flattens every
 interval of every scenario into one batch and loops over the substeps in
-Python; A(t), B(t), F(t) come from `torch.func.jacfwd` under
-`torch.func.vmap`.
+Python; A(t), B(t), F(t) and the jump's Jacobians come from
+`torch.func.jacfwd` under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -74,19 +78,42 @@ def _field_and_jacobians(f: Callable, jac: Optional[Callable]):
     return vmap(one)
 
 
+def _jump_and_jacobians(impulse: Callable):
+    """(t, x, u, p) -> (jump, Ju, Jp), vmapped over a leading batch."""
+
+    def one(t, x, u, p):
+        g = lambda uu, pp: (impulse(t, x, uu, pp),) * 2
+        (Ju, Jp), val = jacfwd(g, argnums=(0, 1), has_aux=True)(u, p)
+        return val, Ju, Jp
+
+    return vmap(one)
+
+
 def discretize(f: Callable, x_ref, u_ref, p_ref, t_grid, E, *,
                nsub: int = 15,
                method: DiscretizationType = DiscretizationType.FOH,
-               jac: Optional[Callable] = None, actions: Optional[Callable] = None,
+               jac: Optional[Callable] = None,
+               impulse: Optional[Callable] = None,
+               actions: Optional[Callable] = None,
                consts=None) -> DLTV:
     """Linearize/discretize dx/dt = f(t, x, u, p) about a batch of references
     x_ref (B, N, nx), u_ref (B, N, nu), p_ref (B, np) on the node times
-    t_grid (N,); E (nx, nv) is the virtual-control injection."""
-    if method != DiscretizationType.FOH:
-        raise NotImplementedError("IMPULSE discretization is not ported yet")
+    t_grid (N,); E (nx, nv) is the virtual-control injection.
+
+    Under IMPULSE, f is the coasting field and `impulse` the state jump at
+    each node. The STM is always the pure flow's, and the jump enters through
+    its input and parameter Jacobians only: A_k = PhiF, Bm_k = PhiF Ju,
+    F_k = PhiF (Jp + intPsiF). The jump's state Jacobian is left out on
+    purpose, as in the reference (discretization.jl:385-391): with it the
+    subproblem sees first-order exploits of the jump's state dependence (the
+    3-D rendezvous thrust rotation R(q) u scales with ||q||^2, so inflating
+    the quaternion off the unit sphere looks profitable), which diverge
+    under re-linearization."""
     f = bind_consts(f, consts)
     jac = bind_consts(jac, consts)
+    impulse = bind_consts(impulse, consts)
     actions = bind_consts(actions, consts)
+    is_impulse = method == DiscretizationType.IMPULSE
     Bn, N, nx = x_ref.shape
     nu = u_ref.shape[2]
     npp = p_ref.shape[1]
@@ -100,21 +127,32 @@ def discretize(f: Callable, x_ref, u_ref, p_ref, t_grid, E, *,
     dt_k = (t_grid[1:] - t_grid[:-1]).repeat(Bn)
     fj = _field_and_jacobians(f, jac)
     act = vmap(actions) if actions is not None else None
+    if is_impulse:
+        jump, Ju, Jp = (v.to(dt) for v in _jump_and_jacobians(impulse)(
+            t_k, x_k, u_k, p_k))
+        x_start = x_k + jump
+        u_coast = torch.zeros_like(u_k)
 
     def rhs(tau, s: _VarState):
         t = t_k + tau
-        sig_p = tau / dt_k
-        u = u_k + (u_kp1 - u_k) * sig_p[:, None]
+        if is_impulse:
+            # the input acts only through the jump
+            u = u_coast
+            sig_m = sig_p = torch.zeros_like(tau)
+        else:
+            sig_p = tau / dt_k
+            sig_m = 1.0 - sig_p
+            u = u_k + (u_kp1 - u_k) * sig_p[:, None]
         xdot, A_t, B_t, F_t = (v.to(dt) for v in fj(t, s.x, u, p_k))
         PsiB = s.Psi @ B_t
         return _VarState(
             x=xdot, Phi=A_t @ s.Phi, Psi=-s.Psi @ A_t,
-            Bm=(1.0 - sig_p)[:, None, None] * PsiB,
+            Bm=sig_m[:, None, None] * PsiB,
             Bp=sig_p[:, None, None] * PsiB,
             F=s.Psi @ F_t, intPsi=s.Psi)
 
     eye = torch.eye(nx, dtype=dt, device=dev).expand(M, nx, nx)
-    s = _VarState(x=x_k, Phi=eye, Psi=eye,
+    s = _VarState(x=x_start if is_impulse else x_k, Phi=eye, Psi=eye,
                   Bm=x_k.new_zeros(M, nx, nu), Bp=x_k.new_zeros(M, nx, nu),
                   F=x_k.new_zeros(M, nx, npp), intPsi=x_k.new_zeros(M, nx, nx))
     dsub = dt_k / nsub
@@ -125,9 +163,14 @@ def discretize(f: Callable, x_ref, u_ref, p_ref, t_grid, E, *,
 
     PhiF = s.Phi
     A_k = PhiF
-    Bm_k = PhiF @ s.Bm
-    Bp_k = PhiF @ s.Bp
-    F_k = PhiF @ s.F
+    if is_impulse:
+        Bm_k = PhiF @ Ju
+        Bp_k = x_k.new_zeros(M, nx, nu)
+        F_k = PhiF @ (Jp + s.F)
+    else:
+        Bm_k = PhiF @ s.Bm
+        Bp_k = PhiF @ s.Bp
+        F_k = PhiF @ s.F
     E_k = PhiF @ s.intPsi @ E
     xprop = s.x
     mv = lambda Mx, v: (Mx @ v[:, :, None])[..., 0]
@@ -140,11 +183,16 @@ def discretize(f: Callable, x_ref, u_ref, p_ref, t_grid, E, *,
 
 
 def propagate(f: Callable, x0, u_ref, p_ref, t_grid, *, nsub: int = 30,
+              method: DiscretizationType = DiscretizationType.FOH,
+              impulse: Optional[Callable] = None,
               actions: Optional[Callable] = None, consts=None):
-    """Continuous-time replay of a solution under FOH inputs from x0 (nx,):
+    """Continuous-time replay of a solution from x0 (nx,), under linearly
+    interpolated inputs (FOH) or coasting after each node's jump (IMPULSE):
     returns (ts, xs) on the (N-1)*nsub+1 fine grid (single scenario)."""
     f = bind_consts(f, consts)
+    impulse = bind_consts(impulse, consts)
     actions = bind_consts(actions, consts)
+    is_impulse = method == DiscretizationType.IMPULSE
     N = t_grid.shape[0]
     xs = [x0]
     ts = [t_grid[:1]]
@@ -153,8 +201,13 @@ def propagate(f: Callable, x0, u_ref, p_ref, t_grid, *, nsub: int = 30,
         t_k = t_grid[k]
         h = t_grid[k + 1] - t_k
         u_k, u_kp1 = u_ref[k], u_ref[k + 1]
-        rhs = lambda tau, xx: f(t_k + tau, xx, u_k + (u_kp1 - u_k)
-                                * (tau / h), p_ref)
+        if is_impulse:
+            x = x + impulse(t_k, x, u_k, p_ref)
+            u0 = torch.zeros_like(u_k)
+            rhs = lambda tau, xx: f(t_k + tau, xx, u0, p_ref)
+        else:
+            rhs = lambda tau, xx: f(t_k + tau, xx, u_k + (u_kp1 - u_k)
+                                    * (tau / h), p_ref)
         dsub = h / nsub
         for i in range(nsub):
             x = rk4_step(rhs, x, i * dsub, dsub)

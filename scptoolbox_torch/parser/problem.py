@@ -98,9 +98,11 @@ class BoundingBox(NamedTuple):
 class TrajectoryProblem:
     """Definition of a nonconvex trajectory optimization problem.
 
-    Required: nx, nu, np; dynamics `f(t, x, u, p) -> (nx,)`; `guess(N) ->
-    (x (N, nx), u (N, nu), p (np,))` as numpy arrays.
-    Optional: `jac` (analytic (A, B, F)), `terminal_cost(xf, p)`,
+    Required: nx, nu, np; dynamics `f(t, x, u, p) -> (nx,)` (under IMPULSE
+    discretization the coasting field); `guess(N) -> (x (N, nx), u (N, nu),
+    p (np,))` as numpy arrays.
+    Optional: `jac` (analytic (A, B, F)), `impulse(t, x, u, p) -> (nx,)`
+    (the state jump at each node under IMPULSE), `terminal_cost(xf, p)`,
     `running_cost(t, k, x, u, p)` (affine or convex quadratic), convex sets
     `X(t, k, x, p)` / `U(t, k, u, p)` returning lists of ConeCon, nonconvex
     path constraints `s(t, k, x, u, p) <= 0`, boundary conditions
@@ -120,6 +122,7 @@ class TrajectoryProblem:
     guess: Callable
     consts: Any = None
     jac: Optional[Callable] = None
+    impulse: Optional[Callable] = None
     terminal_cost: Optional[Callable] = None
     running_cost: Optional[Callable] = None
     X: Optional[Callable] = None

@@ -177,7 +177,7 @@ class PTR:
         return discretize(
             self.pbm.f, x, u, p, self._t_grid, self._E, nsub=self.pars.Nsub,
             method=self.pars.disc_method, jac=self.pbm.jac,
-            actions=self.pbm.integration_actions,
+            impulse=self.pbm.impulse, actions=self.pbm.integration_actions,
             consts=self.consts if consts is None else consts)
 
     def _assemble(self, ref_x, ref_u, ref_p, dltv, consts):
@@ -294,7 +294,8 @@ class PTR:
         """The serial PTR loop (reference ptr.jl:448-532) from the problem's
         guess or a previous solution, one scenario: a history record per
         iteration, the problem's callback (True vetoes stopping; it may
-        raise `self.extra_iters` to extend the budget), a progress table
+        raise `self.extra_iters` to extend the budget and move
+        `self.consts`, which every iteration reads), a progress table
         when verbose, an emergency exit that keeps the last finite iterate,
         and the continuous-time replay of the result at 2 Nsub substeps."""
         pars = self.pars
@@ -317,8 +318,7 @@ class PTR:
             ref = tuple(self._t(a)[None] for a in (warm.xd, warm.ud, warm.p))
         else:
             ref = tuple(a[None] for a in self._guess)
-        consts = self.consts
-        dltv = self._discretize(*ref, consts)
+        dltv = self._discretize(*ref)
         J_aug_ref = torch.full((1,), math.inf, dtype=self.dtype,
                                device=self.device)
         history = []
@@ -332,10 +332,13 @@ class PTR:
         while it + 1 < pars.iter_max + self.extra_iters:
             it += 1
             t0 = time.perf_counter()
+            # self.consts is read at every iteration: the callback may move
+            # it (a homotopy ladder driven by the solver, rendezvous_3d)
             if pars.timing_detail:
-                out, timing = self._step_timed(*ref, dltv, J_aug_ref, consts)
+                out, timing = self._step_timed(*ref, dltv, J_aug_ref,
+                                               self.consts)
             else:
-                out = self._step_impl(*ref, dltv, J_aug_ref, consts)
+                out = self._step_impl(*ref, dltv, J_aug_ref, self.consts)
                 timing = None
             J_aug = float(out["J_aug"][0])
             feas = bool(out["feas"][0])
@@ -396,8 +399,9 @@ class PTR:
             status = SCPStatus.SOLVED
         ts, xs = propagate(
             self.pbm.f, out["x"][0, 0], out["u"][0], out["p"][0],
-            self._t_grid, nsub=2 * pars.Nsub,
-            actions=self.pbm.integration_actions, consts=consts)
+            self._t_grid, nsub=2 * pars.Nsub, method=pars.disc_method,
+            impulse=self.pbm.impulse, actions=self.pbm.integration_actions,
+            consts=self.consts)
         return SCPSolution(
             status=status, algorithm="ptr", iterations=n_iter,
             xd=np_(out["x"]), ud=np_(out["u"]), p=np_(out["p"]),

@@ -1,13 +1,13 @@
 """KKT method resolution and stage-structure probing for the SCP solvers.
 
 Counterpart of `scptoolbox_tpu/solvers/structure.py` (`resolve_kkt` :31,
-`ipm_kkt_kwargs` :64, `random_dltv` :78, `build_staged_builder` :114). The
-port carries the staged cyclic-reduction methods ("staged_cr",
-"staged_crpl") and the dense ones ("schur", "lu"). The normal-equations
-block sweep (`ops/block_kkt.py`, the JAX package's f64 auto choice for
-n >= 600) and the other staged variants are not ported yet: asking for them,
-explicitly or through the auto policy, raises NotImplementedError rather
-than silently running a different method.
+`ipm_kkt_kwargs` :64, `random_dltv` :78, `build_kkt_builder` :87,
+`build_staged_builder` :114). The port carries the normal-equations block
+sweep (`ops/block_kkt.py`, the float64 auto choice for n >= 600 and what
+`structured_kkt=True` forces), the staged cyclic-reduction methods
+("staged_cr", "staged_crpl") and the dense ones ("schur", "lu"). The other
+staged variants are not ported yet: asking for them raises
+NotImplementedError rather than silently running a different method.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 from scptoolbox_torch.ops.aug_kkt import (make_staged_cr_builder,
                                           make_staged_crpl_builder,
                                           probe_aug_structure)
+from scptoolbox_torch.ops.block_kkt import make_kkt_builder, probe_structure
 from scptoolbox_torch.ops.discretize import DLTV
 
 STAGED_METHODS = ("staged_cr", "staged_crpl")
@@ -36,8 +37,8 @@ def resolve_kkt(tmpl, probe, kkt_method, structured_kkt):
       * an explicit staged method is probed here; "schur"/"lu" pass
         through to ipm.solve;
       * auto, n >= 600, float32: "staged_cr";
-      * auto, n >= 600, float64, or structured_kkt=True: the block_kkt
-        sweep, which waits for a later slice (raises);
+      * auto, n >= 600, float64, or structured_kkt=True: the block sweep
+        (build_kkt_builder; the dense Schur KKT where the probe fails);
       * otherwise the dense Schur KKT."""
     if kkt_method in _LATER:
         raise NotImplementedError(
@@ -47,15 +48,10 @@ def resolve_kkt(tmpl, probe, kkt_method, structured_kkt):
             tmpl, probe, variant=kkt_method.split("_", 1)[1])
     if kkt_method is not None:
         return kkt_method, None
-    big = tmpl.n >= 600
-    if structured_kkt is None and big and tmpl.dtype == torch.float32:
+    if (structured_kkt is None and tmpl.n >= 600
+            and tmpl.dtype == torch.float32):
         return "staged_cr", build_staged_builder(tmpl, probe, variant="cr")
-    if structured_kkt or (structured_kkt is None and big):
-        raise NotImplementedError(
-            "the float64 auto policy for n >= 600 (and structured_kkt=True) "
-            "needs ops/block_kkt.py, which comes with a later slice; pass "
-            "kkt_method explicitly")
-    return None, None
+    return None, build_kkt_builder(tmpl, probe, enabled=structured_kkt)
 
 
 def ipm_kkt_kwargs(kkt_method, kkt_builder) -> dict:
@@ -79,6 +75,26 @@ def random_dltv(rng: np.random.Generator, N: int, nx: int, nu: int,
                 Bp=r(N - 1, nx, nu), F=r(N - 1, nx, npp),
                 r=r(N - 1, nx), E=r(N - 1, nx, nx),
                 defects=r(N - 1, nx), xprop=r(N - 1, nx))
+
+
+def build_kkt_builder(tmpl, assemble: Callable[[int], np.ndarray],
+                      enabled=None) -> Optional[Callable]:
+    """The block-sweep builder of a frozen template, or None (the dense
+    Schur KKT). enabled=None (auto): at n >= 600 in float64, where forming
+    the dense H dominates (the float32 sweep loses enough accuracy that the
+    SCP iterates diverge); True/False force it. None also when the probe
+    finds a cone row spanning non-adjacent stages, and for specs with EXP
+    cones (the stage classifier does not map their blocks)."""
+    if tmpl.spec.nexp > 0:
+        return None
+    if enabled is None:
+        enabled = tmpl.n >= 600 and tmpl.dtype == torch.float64
+    if not enabled:
+        return None
+    st = probe_structure(tmpl.layout, tmpl.N, tmpl.spec, assemble)
+    if st is None:
+        return None
+    return make_kkt_builder(st)
 
 
 def build_staged_builder(tmpl, assemble: Callable[[int], np.ndarray],

@@ -91,6 +91,31 @@ def test_callback_vetoes_stopping_and_extends_the_budget():
     assert sol.status == SCPStatus.SOLVED
 
 
+def test_callback_moves_the_consts_of_the_next_iteration():
+    """solver.consts is read at every iteration, as the JAX package's loop
+    reads it (scptoolbox_tpu/solvers/ptr.py:386-389): a callback that moves
+    it (the 3-D rendezvous homotopy ladder) changes the next step."""
+    pbm, S = _port_solver(iter_max=3)
+    moved = {"rung": 1}
+    seen = []
+    step = S._step_impl
+
+    def spy(*args):
+        seen.append(args[-1])
+        return step(*args)
+
+    def callback(rec):
+        if rec.iteration == 1:
+            S.consts = moved
+        return True
+
+    S._step_impl = spy
+    pbm.callback = callback
+    S.solve()
+    assert len(seen) == 3
+    assert seen[0] is None and seen[1] is moved and seen[2] is moved
+
+
 def test_non_finite_cost_ends_the_solve_on_the_last_good_iterate(
         monkeypatch):
     _, S = _port_solver(iter_max=3, timing_detail=True)

@@ -15,6 +15,9 @@ import numpy as np
 import torch
 
 from scptoolbox_torch import interop
+from scptoolbox_torch.ops.discretize import DiscretizationType as TDisc
+from scptoolbox_torch.solvers import ptr as tptr
+from scptoolbox_tpu.ops.discretize import DiscretizationType as JDisc
 from scptoolbox_tpu.solvers import ptr as jptr
 
 # the JAX models package re-exports functions under the module names
@@ -22,6 +25,8 @@ jdi = import_module("scptoolbox_tpu.models.double_integrator")
 jss = import_module("scptoolbox_tpu.models.starship_flip")
 tdi = import_module("scptoolbox_torch.models.double_integrator")
 tss = import_module("scptoolbox_torch.models.starship_flip")
+jrp = import_module("scptoolbox_tpu.models.rendezvous_planar")
+trp = import_module("scptoolbox_torch.models.rendezvous_planar")
 
 # bench.py:33-36, cut to N=15, Nsub=8
 DI_MODEL = dict(drag=True, g=0.01, s=30.0)
@@ -31,6 +36,43 @@ DI_PARS = dict(N=15, Nsub=8, iter_max=3, wvc=1e3, wtr=5e-3, ipm_tol=3e-6,
 SS_PARS = dict(N=31, Nsub=30, iter_max=15, wvc=1e3, wtr=0.1, eps_abs=1e-5,
                eps_rel=1e-4, feas_tol=5e-3, ipm_tol=3e-6, ipm_max_iter=60,
                kkt_method="staged_cr")
+
+
+# tests/test_block_kkt.py:18-30: the default double integrator at N=15 with
+# the block sweep forced
+BLOCK_PARS = dict(N=15, Nsub=8, iter_max=3, structured_kkt=True)
+# solve_rendezvous_planar's parameters at N=8, Nsub=5, the block sweep forced
+PLANAR_PARS = dict(N=8, Nsub=5, iter_max=2, wvc=5e2, wtr=0.3,
+                   eps_abs=-np.inf, eps_rel=1e-5, feas_tol=5e-3,
+                   ipm_max_iter=40, structured_kkt=True)
+
+
+@functools.cache
+def di_block_pair():
+    """(JAX PTR, port PTR) on the default double integrator with the block
+    sweep forced, the port's on the CPU in float64."""
+    J = jptr.PTR(jdi.double_integrator(), jptr.PTRParameters(**BLOCK_PARS))
+    T = tptr.PTR(tdi.double_integrator(), tptr.PTRParameters(**BLOCK_PARS),
+                 device="cpu")
+    return J, T
+
+
+@functools.cache
+def planar_pair():
+    """(JAX PTR, port PTR) on the planar rendezvous at N=8 under IMPULSE
+    discretization, the block sweep forced, both at the first rung of
+    solve_rendezvous_planar's homotopy (kappa from each package's own
+    schedule); the port's on the CPU in float64."""
+    J = jptr.PTR(jrp.rendezvous_planar(), jptr.PTRParameters(
+        **PLANAR_PARS, disc_method=JDisc.IMPULSE))
+    J.consts = {"kappa": jax.numpy.asarray(float(
+        jrp.Homotopy(delta_min=1e-3, delta_max=5.0)(0.0)))}
+    T = tptr.PTR(trp.rendezvous_planar(), tptr.PTRParameters(
+        **PLANAR_PARS, disc_method=TDisc.IMPULSE), device="cpu")
+    T.consts = {"kappa": torch.tensor(float(
+        trp.Homotopy(delta_min=1e-3, delta_max=5.0)(0.0)),
+        dtype=torch.float64)}
+    return J, T
 
 
 @functools.cache
