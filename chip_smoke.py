@@ -33,6 +33,14 @@ non-zero; nothing is caught and passed over):
      their pinned configurations in float64 (planar N=20 with 5 homotopy
      rungs, 3-D N=15 with 5), SOLVED, feasible, costs within 1e-3 of their
      pins, with the template size and the KKT path the auto policy took;
+  quadrotor_scvx, freeflyer_scvx, starship_scvx: serial SCvx at the
+     configurations of the JAX package's three SCvx cost pins (quadrotor
+     N=30, free-flyer N=30, Starship N=31 from a guess built on the CPU),
+     float64, the block sweep: SOLVED, feasible, costs within 1e-3 of their
+     pins, the guess projection driven apart from the SCvx loop; the
+     quadrotor's keep-out zones and the free-flyer's quaternion norm held;
+  quadrotor_scvx_batched: SCvx.solve_batched at B=8 on the quadrotor, all
+     SOLVED and feasible, its unscaled scenario repeating the serial solve;
   kernels: every kernel against its plain PyTorch version at every
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
@@ -77,6 +85,9 @@ RENDEZVOUS_PINS = {"rendezvous_planar": 1.1827842514296785,   # the same
 LCVX_PINS = {"di_1": 30.482272778280244, "di_2": 16.72312696206503,
              "rocket": 429.36347460004663}
 ROCKET_FILE_PIN = 429.60033408957395
+SCVX_PINS = {"quadrotor_scvx": 1.2512114705769732,      # the same file
+             "freeflyer_scvx": 0.3497083909142046,
+             "starship_scvx": 0.7731570211473755}
 PEAK_FLOPS = {"float32": 67e12,  # H100 SXM, outside the tensor cores
               "float64": 67e12}  # on the FP64 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12             # HBM3, bytes/s
@@ -254,6 +265,21 @@ def _check(torch, kernel, run, plain, tol, what):
     return err
 
 
+def _design(torch, ck, kernel, dt, nb, n, K):
+    """The design a Cholesky-ladder launcher takes at (nb, n, K), as the
+    library's chol_design export reports it (nothing is launched); None for
+    the LU and Gauss-Jordan kernels."""
+    which = {"cholesky": 0, "solve_lower": 1, "solve_lower_t": 2}.get(kernel)
+    if which is None:
+        return None
+    sfx = "f32" if dt == torch.float32 else "f64"
+    v = getattr(ck.LIB.load(), f"chol_design_{sfx}")(which, nb, n, K)
+    assert v >= 0, (kernel, nb, n, K, v)
+    if which == 0:
+        return "one block" if v == 1 else f"spread over {v} blocks"
+    return ("clusters", "panels", "one block (tri_solve)")[v]
+
+
 def _gj_shapes(shapes_by_path):
     """gj_inverse's shapes: no path launches it, so it takes the lu_factor
     groups of the Starship phases, the CR blocks it was written for."""
@@ -273,7 +299,8 @@ def phase_kernels(torch, lk, ck, gk, shapes_by_path):
     results within a relative 1e-4 in float32 and 1e-10 in float64) and
     timed at the largest beside its bound and the torch.linalg call
     (kernel_ms through the wrapper, host time included, as every earlier
-    record; device_ms on the device alone, from a CUDA graph).
+    record; device_ms on the device alone, from a CUDA graph), with the
+    design the ladder launchers take at both batches.
     gj_inverse, on no path, is checked and timed the same way at the
     Starship phases' lu_factor shapes (the path "kernels"); its launches
     are the ones this phase makes."""
@@ -307,6 +334,8 @@ def phase_kernels(torch, lk, ck, gk, shapes_by_path):
                         if kernel == "gj_inverse" else sum(nbs.values()))
             row = dict(path=path, kernel=kernel, dtype=dtname, n=n, K=K,
                        nb_checked=sorted({min(nbs), max(nbs)}),
+                       design={b: _design(torch, ck, kernel, dt, b, n, K)
+                               for b in sorted({min(nbs), max(nbs)})},
                        launches=launches, max_abs_err=err,
                        kernel_ms=_time_ms(torch, run, 20),
                        device_ms=_device_ms(torch, run, 20),
@@ -724,6 +753,197 @@ def phase_rendezvous_full(torch, lk, ck):
     return rec, shapes
 
 
+# the JAX package's SCvx tests: tests/test_quadrotor.py:22-26,
+# tests/test_freeflyer.py:23-32, tests/test_starship.py:75-89
+SCVX_PARS = {
+    "quadrotor_scvx": dict(N=30, Nsub=15, lam=30.0, iter_max=15),
+    "freeflyer_scvx": dict(N=30, Nsub=10, lam=1e3, iter_max=30, eta_lb=1e-6,
+                           eps_abs=1e-5, eps_rel=1e-4, feas_tol=1e-3),
+    "starship_scvx": dict(N=31, Nsub=30, iter_max=100, lam=5e2, eta_init=1.0,
+                          eta_lb=1e-8, eps_abs=1e-5, eps_rel=1e-4,
+                          feas_tol=5e-3)}
+
+
+def _scvx_problem(tag):
+    """The problem of an SCvx phase (the Starship's guess built on the CPU,
+    as starship_f64 builds it)."""
+    from scptoolbox_torch.models.freeflyer import freeflyer
+    from scptoolbox_torch.models.quadrotor import quadrotor
+    from scptoolbox_torch.models.starship_flip import starship
+
+    return {"quadrotor_scvx": lambda: quadrotor(),
+            "freeflyer_scvx": lambda: freeflyer(N=30),
+            "starship_scvx": lambda: starship(N=31, device="cpu")}[tag]()
+
+
+def _scvx_setup(torch, lk, ck, tag, **over):
+    """(solver, record, shapes, projected guess or None) of an SCvx phase's
+    set-up, float64 on the card: the constructor (the LP auto-scaling, the
+    block sweep's probe), then the guess projection, each driven on its own
+    so that the dense ladder launches of the projection's program stay out
+    of the SCvx loop's count."""
+    from scptoolbox_torch.solvers import scvx
+    from scptoolbox_torch.solvers.projection import project_convex
+
+    solver, setup_s, setup_launches, setup_shapes = _drive(
+        torch, lk, ck, lambda: scvx.SCvx(
+            _scvx_problem(tag), scvx.SCvxParameters(**SCVX_PARS[tag], **over),
+            dtype=torch.float64, device="cuda"))
+    assert _kkt_path(solver) == "block", _kkt_path(solver)
+    st = solver.kkt_builder.structure
+    rec = dict(kkt="block", n=solver.tmpl.n, m=solver.tmpl.m,
+               nz=solver.spec.nz, ns=st.ns, ng=st.ng, rmax=st.rmax,
+               gmax=st.gmax, dtype="float64", setup_s=setup_s,
+               setup_launches=setup_launches)
+    shapes = {f"{tag}_setup": setup_shapes}
+    guess = None
+    if solver.pars.project_guess:
+        guess, proj_s, proj_launches, shapes[f"{tag}_projection"] = _drive(
+            torch, lk, ck, lambda: project_convex(
+                solver.pbm, solver.scaling, *solver._guess,
+                t_grid=solver.t_np, dtype=torch.float64, device="cuda"))
+        rec["projection"] = dict(wall_s=proj_s, launches=proj_launches,
+                                 moved=float(max(
+                                     (a - b).abs().max() for a, b in
+                                     zip(guess, solver._guess))))
+        assert _ladder_launched(proj_launches), proj_launches
+    log(f"[{tag}] set-up {setup_s:.1f} s: " + json.dumps(rec))
+    return solver, rec, shapes, guess
+
+
+def _scvx_history(sol):
+    return [dict(J_aug=h.J_aug, rho=h.extras["rho"], eta=h.extras["eta"],
+                 accept=not h.extras["reject"], ipm_iters=h.ipm_iters,
+                 ipm_status=h.ipm_status, feas=h.feas) for h in sol.history]
+
+
+def _run_scvx(torch, lk, ck, tag):
+    """One serial SCvx solve at the configuration of a cost pin, float64 on
+    the card on the block sweep: SOLVED, feasible, the cost within the
+    pin's relative 1e-3, the three ladder kernels launched, and one
+    cholesky pass (N + 2 launches) for every IPM loop the history counts.
+    The loop starts from the projected guess (solve(warm=) with the set-up's
+    projection, which is what solve() computes first)."""
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.solvers.solution import SCPSolution
+
+    solver, rec, shapes, guess = _scvx_setup(torch, lk, ck, tag)
+    x, u, p = (a.cpu().numpy() for a in guess)
+    warm = SCPSolution(status=SCPStatus.FAILED, algorithm="projection",
+                       iterations=0, xd=x, ud=u, p=p, cost=math.nan,
+                       t_grid=solver.t_np, feas=False)
+    sol, wall, launches, shapes[tag] = _drive(
+        torch, lk, ck, lambda: solver.solve(warm=warm))
+    loops = _block_ipm_loops(solver, launches)
+    rec.update(wall_s=wall, status=str(sol.status), feasible=bool(sol.feas),
+               iterations=sol.iterations, cost=sol.cost,
+               cost_rel_dev=abs(sol.cost / SCVX_PINS[tag] - 1.0),
+               history=_scvx_history(sol), ipm_loops=loops,
+               launches=launches,
+               launches_per_ipm_loop={k: v / loops
+                                      for k, v in launches.items()})
+    log(f"[{tag}] " + json.dumps(rec))
+    assert sol.status == SCPStatus.SOLVED and sol.feas, rec
+    assert rec["cost_rel_dev"] <= 1e-3, rec
+    assert _ladder_launched(launches), launches
+    assert loops == sum(h.ipm_iters + 1 for h in sol.history), (
+        loops, rec["history"])
+    return rec, shapes, sol
+
+
+def phase_quadrotor_scvx(torch, lk, ck):
+    """scvx.solve(quadrotor(), N=30, Nsub=15, lam=30, iter_max=15): the
+    quadrotor_scvx pin, and both keep-out values >= 1 - 1e-5 at every
+    node."""
+    from scptoolbox_torch.models.quadrotor import QuadrotorParameters
+
+    rec, shapes, sol = _run_scvx(torch, lk, ck, "quadrotor_scvx")
+    keep = [min(float(E(torch.as_tensor(r))) for r in sol.xd[:, :3])
+            for E in QuadrotorParameters().obstacles()]
+    rec["keep_out_min"] = keep
+    log(f"[quadrotor_scvx] keep-out minima {keep}")
+    assert min(keep) >= 1.0 - 1e-5, keep
+    return rec, shapes
+
+
+def phase_freeflyer_scvx(torch, lk, ck):
+    """freeflyer(N=30) under tests/test_freeflyer.py's SCvx configuration:
+    the freeflyer_scvx pin, the quaternion's norm within 1e-3 of 1 at the
+    nodes and within 1e-6 on the replay, and the sweep's arrow (234 columns)
+    and equality block (403 rows) as the JAX package's template has them."""
+    rec, shapes, sol = _run_scvx(torch, lk, ck, "freeflyer_scvx")
+    qn = np.linalg.norm(sol.xd[:, 6:10], axis=1)
+    qc = np.linalg.norm(sol.x_cont[:, 6:10], axis=1)
+    rec.update(q_norm_node_dev=float(np.abs(qn - 1.0).max()),
+               q_norm_replay_dev=float(np.abs(qc - 1.0).max()))
+    log(f"[freeflyer_scvx] quaternion norm deviation: nodes "
+        f"{rec['q_norm_node_dev']:.3e}, replay {rec['q_norm_replay_dev']:.3e}")
+    assert rec["q_norm_node_dev"] <= 1e-3, rec
+    assert rec["q_norm_replay_dev"] <= 1e-6, rec
+    assert (rec["ng"], rec["nz"]) == (234, 403), rec
+    return rec, shapes
+
+
+def phase_starship_scvx(torch, lk, ck):
+    """starship(N=31) under tests/test_starship.py's SCvx configuration (up
+    to 100 iterations), its guess built on the CPU: the starship_scvx
+    pin."""
+    rec, shapes, _ = _run_scvx(torch, lk, ck, "starship_scvx")
+    return rec, shapes
+
+
+def phase_quadrotor_scvx_batched(torch, lk, ck, B=8):
+    """SCvx.solve_batched at B=8 on the quadrotor from _scenario_batch's
+    guesses (2% spread; scenario B/2 is the guess itself), not projected:
+    all SOLVED and feasible, the sweep's kernels at nb 8 -> 1 as scenarios
+    freeze. The unscaled scenario repeats the serial solve from the same
+    guess (driven apart): the same iterations and eta trace, each
+    iteration's J_aug to 1e-6 relative (tests/test_batched.py:81)."""
+    from scptoolbox_torch.config import SCPStatus
+
+    tag = "quadrotor_scvx_batched"
+    solver, rec, shapes, _ = _scvx_setup(torch, lk, ck, "quadrotor_scvx",
+                                         project_guess=False)
+    shapes = {f"{tag}_setup": shapes["quadrotor_scvx_setup"]}
+    bx, bu, bp = _scenario_batch(torch, solver, B, 0.02)
+    k = B // 2
+    assert torch.equal(bx[k], solver._guess[0])
+    n_iters = solver.pars.iter_max
+    out, wall, launches, shapes[tag] = _drive(
+        torch, lk, ck, lambda: solver.solve_batched(bx, bu, bp, n_iters))
+    serial, serial_s, _, _ = _drive(torch, lk, ck, solver.solve)
+    status = out["status"].cpu().numpy()
+    feas = out["feas"].cpu().numpy()
+    cost = out["J_orig"].cpu().numpy()
+    loops = sum(int(t["ipm_iters"].max()) + 1 for t in out["traces"])
+    col = lambda key: [float(t[key][k]) for t in out["traces"]
+                       if bool(t["active"][k])]
+    J_dev = max(abs(a / h.J_aug - 1.0) for a, h in zip(col("J_aug"),
+                                                       serial.history))
+    rec.update(B=B, wall_s=wall, solves_per_s=B / wall,
+               solved=int((status == int(SCPStatus.SOLVED)).sum()),
+               feasible=int(feas.sum()),
+               iters=out["iters"].cpu().numpy().tolist(),
+               scp_steps=len(out["traces"]), ipm_loops=loops,
+               active=[int(t["active"].sum()) for t in out["traces"]],
+               cost_min=float(cost.min()), cost_max=float(cost.max()),
+               serial=dict(wall_s=serial_s, iterations=serial.iterations,
+                           cost=serial.cost, history=_scvx_history(serial)),
+               unscaled_eta=col("eta"), unscaled_J_aug_max_rel_dev=J_dev,
+               launches=launches,
+               launches_per_ipm_loop={k_: v / loops
+                                      for k_, v in launches.items()})
+    log(f"[{tag}] " + json.dumps(rec))
+    assert (status == int(SCPStatus.SOLVED)).all(), rec
+    assert feas.all(), rec
+    assert _ladder_launched(launches), launches
+    assert _block_ipm_loops(solver, launches) == loops, (launches, loops)
+    assert int(out["iters"][k]) == serial.iterations, rec
+    assert col("eta") == [h.extras["eta"] for h in serial.history], rec
+    assert J_dev <= 1e-6, rec
+    return rec, shapes
+
+
 def phase_gmres(torch, lk, ck, B=4):
     """FGMRES depth of the staged CR KKT against IPM convergence on the
     first Starship subproblems of B spread guesses (float64 k=8, float32
@@ -914,7 +1134,11 @@ PATHS = (("starship", phase_starship),
          ("oscillator", phase_oscillator),
          ("lcvx", phase_lcvx),
          ("rendezvous_planar", phase_rendezvous_planar),
-         ("rendezvous_3d", phase_rendezvous_3d))
+         ("rendezvous_3d", phase_rendezvous_3d),
+         ("quadrotor_scvx", phase_quadrotor_scvx),
+         ("freeflyer_scvx", phase_freeflyer_scvx),
+         ("starship_scvx", phase_starship_scvx),
+         ("quadrotor_scvx_batched", phase_quadrotor_scvx_batched))
 OPT_IN_PATHS = (("rendezvous_full", phase_rendezvous_full),)
 DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
 

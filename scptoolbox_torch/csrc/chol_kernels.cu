@@ -839,22 +839,34 @@ inline int spread_blocks(long long nb, int n, int sms) {
   return tn <= 0 ? 1 : (int)(free < most ? free : most);
 }
 
+// Blocks a matrix for nb matrices of size n: 2 or more on the cooperative
+// spread, else 1 (cholesky_kernel).
+template <typename T>
+cudaError_t cholesky_blocks(long long nb, int n, const DeviceInfo* d,
+                            int* out) {
+  int bpm = spread_blocks(nb, n, d->sms);
+  if (d->coop && bpm >= 2) {
+    int per_sm = 0;
+    cudaError_t e = spread_per_sm<T>(&per_sm);
+    if (e != cudaSuccess) return e;
+    // a cooperative grid must be resident at once
+    const long long most = (long long)per_sm * d->sms / nb;
+    bpm = (int)(bpm < most ? bpm : most);
+  }
+  *out = d->coop && bpm >= 2 ? bpm : 1;
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch_cholesky(const T* A, T* L, long long nb, int n, void* stream) {
   const DeviceInfo* d = nullptr;
   cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return (int)e;
-  const int cap = d->cap, sms = d->sms, coop = d->coop;
-  int bpm = spread_blocks(nb, n, sms);
-  if (coop && bpm >= 2) {
-    int per_sm = 0;
-    e = spread_per_sm<T>(&per_sm);
-    if (e != cudaSuccess) return (int)e;
-    // a cooperative grid must be resident at once
-    const long long most = (long long)per_sm * sms / nb;
-    bpm = (int)(bpm < most ? bpm : most);
-  }
-  if (coop && bpm >= 2) {
+  const int cap = d->cap;
+  int bpm = 1;
+  e = cholesky_blocks<T>(nb, n, d, &bpm);
+  if (e != cudaSuccess) return (int)e;
+  if (bpm >= 2) {
     int nn = n, b = bpm;
     void* args[] = {(void*)&A, (void*)&L, (void*)&nn, (void*)&b};
     e = cudaLaunchCooperativeKernel(
@@ -970,11 +982,13 @@ cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit,
 // card does not hold a cluster per matrix (or a block's rows do not fit in
 // shared memory): the caller takes a batched design. fit_out, when given,
 // receives the clusters the card holds at the first plan's size, asked
-// with or without the cache, and nothing is launched.
+// with or without the cache, and nothing is launched; nor is anything
+// launched on a dry run, which only sets *ok.
 template <typename T, bool kFwd>
 cudaError_t launch_cluster(const T* L, const T* B, T* X, long long nb, int n,
                            int K, void* stream, bool* ok,
-                           int* fit_out = nullptr, bool cached = true) {
+                           int* fit_out = nullptr, bool cached = true,
+                           bool dry_run = false) {
   *ok = false;
   const panel::DeviceInfo* d = nullptr;
   cudaError_t e = panel::device_info(&d);
@@ -1019,6 +1033,7 @@ cudaError_t launch_cluster(const T* L, const T* B, T* X, long long nb, int n,
   }
   cfg.gridDim = dim3((unsigned)(C * ((K + p.kc - 1) / p.kc)), (unsigned)nb);
   *ok = true;
+  if (dry_run) return cudaSuccess;
   e = cudaLaunchKernelEx(&cfg, solve_cluster_kernel<T, kFwd>, L, B, X, n, K,
                          p.kc, p.rows);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -1073,6 +1088,37 @@ int cluster_fit(int fwd, int n, int K, long long nb, int cached) {
   return e != cudaSuccess ? -(int)e : fit;
 }
 
+// The design the launchers take for nb matrices of size n and K columns:
+// cholesky (which 0) the blocks a matrix (1: cholesky_kernel, 2 or more:
+// cholesky_spread_kernel); solve_lower (1) and solve_lower_t (2) 0 on
+// clusters, 1 on the panel design, 2 on tri_solve_kernel; minus the CUDA
+// error on failure. Nothing is launched.
+template <typename T>
+int design(int which, long long nb, int n, int K) {
+  cudaError_t e;
+  if (which == 0) {
+    const DeviceInfo* d = nullptr;
+    e = device_info(&d);
+    int bpm = 1;
+    if (e == cudaSuccess) e = cholesky_blocks<T>(nb, n, d, &bpm);
+    return e != cudaSuccess ? -(int)e : bpm;
+  }
+  bool ok = false;
+  e = which == 1 ? launch_cluster<T, true>(nullptr, nullptr, nullptr, nb, n,
+                                           K, nullptr, &ok, nullptr, true,
+                                           true)
+                 : launch_cluster<T, false>(nullptr, nullptr, nullptr, nb,
+                                            n, K, nullptr, &ok, nullptr, true,
+                                            true);
+  if (e != cudaSuccess) return -(int)e;
+  if (ok) return 0;
+  const panel::DeviceInfo* d = nullptr;
+  e = panel::device_info(&d);
+  if (e != cudaSuccess) return -(int)e;
+  return panel::fits<T>(which == 1 ? panel::kLower : panel::kLowerT, n,
+                        d->cap) ? 1 : 2;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1117,6 +1163,14 @@ int chol_cluster_fit_f32(int fwd, int n, int K, long long nb, int cached) {
 
 int chol_cluster_fit_f64(int fwd, int n, int K, long long nb, int cached) {
   return cluster_fit<double>(fwd, n, K, nb, cached);
+}
+
+int chol_design_f32(int which, long long nb, int n, int K) {
+  return design<float>(which, nb, n, K);
+}
+
+int chol_design_f64(int which, long long nb, int n, int K) {
+  return design<double>(which, nb, n, K);
 }
 
 int chol_max_shared_bytes() {

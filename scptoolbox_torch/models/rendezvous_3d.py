@@ -29,8 +29,9 @@ import torch
 from torch.func import grad, vmap
 
 from scptoolbox_torch.ops.discretize import DiscretizationType
-from scptoolbox_torch.parser.problem import (BoundingBox, TrajectoryProblem,
-                                             l1, linf, nonpos, soc)
+from scptoolbox_torch.parser.problem import (BoundingBox, Constants,
+                                             TrajectoryProblem, l1, linf,
+                                             nonpos, soc)
 from scptoolbox_torch.solvers import ptr
 from scptoolbox_torch.solvers.solution import SCPSolution
 from scptoolbox_torch.utils import quaternion as quat
@@ -186,24 +187,6 @@ def _mib_or(fr, hom, mdl):
                      normalize=span)
 
 
-class _Constants:
-    """The model's constant arrays as tensors, made once per dtype and
-    device (callbacks see tensors of the solver's dtype and device)."""
-
-    def __init__(self, **arrays):
-        self._np = arrays
-        self._cache = {}
-
-    def __call__(self, like):
-        key = (like.dtype, like.device)
-        c = self._cache.get(key)
-        if c is None:
-            c = {k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
-                 for k, v in self._np.items()}
-            self._cache[key] = c
-        return c
-
-
 def rendezvous_3d(mdl: Rendezvous3DParameters = Rendezvous3DParameters(),
                   N: int = 25) -> TrajectoryProblem:
     """The TrajectoryProblem (reference definition.jl:23-765). N enters
@@ -213,7 +196,7 @@ def rendezvous_3d(mdl: Rendezvous3DParameters = Rendezvous3DParameters(),
     rf_vec, qf = mdl.terminal_pose()
     norb = mdl.n_orbit
     q0 = np.asarray([0.0, 0.0, 0.0, 1.0])
-    cst = _Constants(
+    cst = Constants(
         f_rcs=f_rcs, torque_arms=np.cross(r_rcs, f_rcs), J=mdl.J,
         iJ=np.linalg.inv(mdl.J), qf=qf,
         x0=np.concatenate([mdl.r0, mdl.v0, q0, np.zeros(3)]),

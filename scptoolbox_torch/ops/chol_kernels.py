@@ -46,6 +46,7 @@ LIB = cuda_lib.CudaLibrary("chol_kernels", {
     "solve_lower_t_f32": _SOLVE, "solve_lower_t_f64": _SOLVE,
     "chol_cluster_fit_f32": (_I, _I, _I, _L, _I),
     "chol_cluster_fit_f64": (_I, _I, _I, _L, _I),
+    "chol_design_f32": (_I, _L, _I, _I), "chol_design_f64": (_I, _L, _I, _I),
     "chol_max_shared_bytes": ()})
 
 

@@ -94,6 +94,25 @@ class BoundingBox(NamedTuple):
     hi: np.ndarray
 
 
+class Constants:
+    """A model's constant arrays as tensors, made once per dtype and device:
+    `cst(x)["name"]` in a callback gives the array in the dtype and on the
+    device of x (callbacks see tensors of the solver's dtype and device)."""
+
+    def __init__(self, **arrays):
+        self._np = arrays
+        self._cache = {}
+
+    def __call__(self, like):
+        key = (like.dtype, like.device)
+        c = self._cache.get(key)
+        if c is None:
+            c = {k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                 for k, v in self._np.items()}
+            self._cache[key] = c
+        return c
+
+
 @dataclasses.dataclass
 class TrajectoryProblem:
     """Definition of a nonconvex trajectory optimization problem.

@@ -24,6 +24,12 @@ ABBR = {"starship": "SS", "starship_f64": "SS64",
         "starship_setup": "SS set-up",
         "starship_serial_lu_setup": "serial set-up",
         "rendezvous_planar": "RP", "rendezvous_3d": "R3",
+        "quadrotor_scvx": "Q", "freeflyer_scvx": "FF",
+        "starship_scvx": "SSc", "quadrotor_scvx_batched": "Qb",
+        "quadrotor_scvx_projection": "Q proj",
+        "freeflyer_scvx_projection": "FF proj",
+        "freeflyer_scvx_setup": "FF set-up",
+        "starship_scvx_projection": "SSc proj",
         "kernels": "checks"}
 ORDER = ("lu_factor", "lu_solve", "cholesky", "solve_lower", "solve_lower_t",
          "gj_inverse")

@@ -162,3 +162,33 @@ def test_cluster_occupancy_caches_do_not_mix(card):
                     fresh = fn(fwd, n, K, 1, 0)
                     assert fresh > 0, (dtype, n, K, fwd, fresh)
                     assert fn(fwd, n, K, 1, 1) == fresh, (dtype, n, K, fwd)
+
+
+@pytest.mark.cuda
+def test_design_report_matches_the_launchers(card):
+    """chol_design names the design each launcher takes, as the source's
+    header sets it out: cholesky one block a matrix where the part below
+    the first panel is one tile (n=27, 53) or for a batch that fills the
+    card, else the cooperative spread; the solves on clusters at up to 16
+    matrices of more than one 32-row panel, else on panels, or one block a
+    matrix where two panels of n rows do not fit in shared memory (n=541
+    float64); and the kernels launched at those shapes still equal their
+    plain versions."""
+    lib = ck.LIB.load()
+    f64, f32 = lib.chol_design_f64, lib.chol_design_f32
+    assert f64(0, 1, 27, 27) == f64(0, 1, 53, 53) == 1
+    assert f32(0, 128, 314, 314) == 1
+    assert f64(0, 1, 403, 403) >= 2 and f64(0, 8, 186, 186) >= 2
+    for which in (1, 2):
+        assert f64(which, 1, 403, 234) == 0 and f64(which, 8, 186, 2) == 0
+        assert f64(which, 8, 27, 2) == 1 and f32(which, 128, 314, 64) == 1
+        assert f64(which, 64, 541, 2) == 2
+    for nb, n, K in ((1, 403, 234), (8, 27, 2), (64, 541, 2)):
+        H = _spd(nb, n, torch.float64, card)
+        B = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (nb, n, K)), dtype=torch.float64, device=card)
+        L = ck.cholesky(H)
+        assert torch.equal(L, ck.cholesky_plain(H))
+        assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
+        assert torch.equal(ck.solve_lower_t(L, B),
+                           ck.solve_lower_t_plain(L, B))

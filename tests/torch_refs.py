@@ -17,8 +17,10 @@ import torch
 from scptoolbox_torch import interop
 from scptoolbox_torch.ops.discretize import DiscretizationType as TDisc
 from scptoolbox_torch.solvers import ptr as tptr
+from scptoolbox_torch.solvers import scvx as tscvx
 from scptoolbox_tpu.ops.discretize import DiscretizationType as JDisc
 from scptoolbox_tpu.solvers import ptr as jptr
+from scptoolbox_tpu.solvers import scvx as jscvx
 
 # the JAX models package re-exports functions under the module names
 jdi = import_module("scptoolbox_tpu.models.double_integrator")
@@ -27,6 +29,10 @@ tdi = import_module("scptoolbox_torch.models.double_integrator")
 tss = import_module("scptoolbox_torch.models.starship_flip")
 jrp = import_module("scptoolbox_tpu.models.rendezvous_planar")
 trp = import_module("scptoolbox_torch.models.rendezvous_planar")
+jquad = import_module("scptoolbox_tpu.models.quadrotor")
+tquad = import_module("scptoolbox_torch.models.quadrotor")
+jff = import_module("scptoolbox_tpu.models.freeflyer")
+tff = import_module("scptoolbox_torch.models.freeflyer")
 
 # bench.py:33-36, cut to N=15, Nsub=8
 DI_MODEL = dict(drag=True, g=0.01, s=30.0)
@@ -45,6 +51,38 @@ BLOCK_PARS = dict(N=15, Nsub=8, iter_max=3, structured_kkt=True)
 PLANAR_PARS = dict(N=8, Nsub=5, iter_max=2, wvc=5e2, wtr=0.3,
                    eps_abs=-np.inf, eps_rel=1e-5, feas_tol=5e-3,
                    ipm_max_iter=40, structured_kkt=True)
+# tests/test_quadrotor.py:22-26 cut to N=8, Nsub=5 and five iterations, on
+# the guess as it is (the projection is held on its own)
+QUAD_PARS = dict(N=8, Nsub=5, lam=30.0, iter_max=5, project_guess=False)
+# tests/test_freeflyer.py:23-32 cut to N=6, Nsub=5, with the q = 4 trust
+# region (its tr_w / tr_geom rows)
+FF_PARS = dict(N=6, Nsub=5, lam=1e3, iter_max=30, eta_lb=1e-6, eps_abs=1e-5,
+               eps_rel=1e-4, feas_tol=1e-3, q_tr=4.0)
+
+
+@functools.cache
+def quadrotor_scvx_pair(structured_kkt=None):
+    """(JAX SCvx, port SCvx) on the quadrotor at QUAD_PARS (structured_kkt
+    True: the block sweep forced in both), the port's on the CPU in float64
+    and built from the JAX model parameters."""
+    mdl = jquad.QuadrotorParameters()
+    pars = dict(QUAD_PARS, structured_kkt=structured_kkt)
+    T = tscvx.SCvx(tquad.quadrotor(interop.model_parameters(
+        tquad.QuadrotorParameters, dataclasses.asdict(mdl))),
+        tscvx.SCvxParameters(**pars), device="cpu")
+    return jscvx.SCvx(jquad.quadrotor(mdl), jscvx.SCvxParameters(**pars)), T
+
+
+@functools.cache
+def freeflyer_scvx_pair():
+    """(JAX SCvx, port SCvx) on the free-flyer at N=6 with FF_PARS (the JAX
+    constructor's LP auto-scaling alone takes tens of seconds on the CPU)."""
+    mdl = jff.FreeFlyerParameters()
+    T = tscvx.SCvx(tff.freeflyer(interop.model_parameters(
+        tff.FreeFlyerParameters, dataclasses.asdict(mdl)), N=6),
+        tscvx.SCvxParameters(**FF_PARS), device="cpu")
+    return jscvx.SCvx(jff.freeflyer(mdl, N=6),
+                      jscvx.SCvxParameters(**FF_PARS)), T
 
 
 @functools.cache
