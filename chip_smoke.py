@@ -41,6 +41,20 @@ non-zero; nothing is caught and passed over):
      quadrotor's keep-out zones and the free-flyer's quaternion norm held;
   quadrotor_scvx_batched: SCvx.solve_batched at B=8 on the quadrotor, all
      SOLVED and feasible, its unscaled scenario repeating the serial solve;
+  quadrotor_gusto, quadrotor_gusto_softplus, quadrotor_gusto_qrchol: serial
+     GuSTO on the quadrotor (N=30, Nsub=15) in float64 on the dense Schur
+     KKT's Cholesky ladder: the quad penalty at the quadrotor_gusto pin's
+     configuration, the softplus penalty (180 exp-cone blocks a
+     subproblem) and the quad penalty on the null-space QR-Cholesky KKT;
+     SOLVED, feasible, costs within the pin's 1e-3 (softplus: 1e-2 of the
+     pin and 1e-3 of the JAX package's own softplus cost), keep-out values
+     >= 1 - 5e-3; the guess projection driven apart from the loop;
+  freeflyer_gusto_step: one GuSTO step on the free-flyer (N=30, the soft
+     state set's indicators; H 1593², S 403²) from its raw guess, IPM
+     (almost) optimal, L_aug and J_aug held to the JAX package's values;
+  quadrotor_gusto_batched: GuSTO.solve_batched at B=8 on the quadrotor, all
+     SOLVED and feasible, its unscaled scenario repeating the serial solve
+     (the same iterations, eta and lambda traces);
   kernels: every kernel against its plain PyTorch version at every
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
@@ -56,8 +70,13 @@ non-zero; nothing is caught and passed over):
   profile (not default): the main path's first SCP step split by layer on
      the host clock, and three windows of ten of its IPM loops under
      torch.profiler for the device's busy share and its busiest kernels.
-After the kernels phase, each path's kernel time (its launches x the
-wrapper time of each group) stands beside its wall.
+The path phases run in three worker processes side by side on the card
+(--workers; 1 runs them one after another in this process), shared out by
+their walls in PHASE_S: the paths are host-bound, so this keeps the whole
+run well inside its time limit; each phase's launch counts and shapes are
+its own process's, and its wall is taken beside the other workers'. The
+kernels phase runs alone afterwards. After it, each path's kernel time
+(its launches x the wrapper time of each group) stands beside its wall.
 Prints one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Writes the full
 record to chiprun_out/chip_smoke.json.
@@ -88,6 +107,17 @@ ROCKET_FILE_PIN = 429.60033408957395
 SCVX_PINS = {"quadrotor_scvx": 1.2512114705769732,      # the same file
              "freeflyer_scvx": 0.3497083909142046,
              "starship_scvx": 0.7731570211473755}
+GUSTO_PIN = 1.2511192739246433                   # the same file
+# The JAX package's own results on the CPU in float64, for what no pin
+# covers: gusto.solve(quadrotor(), GuSTOParameters(N=30, Nsub=15,
+# iter_max=20, pen="softplus", hom=500.0, lam_init=1e3)) (the configuration
+# of tests/test_quadrotor.py:69-70), and GuSTO(freeflyer(mdl, N=30),
+# GuSTOParameters(N=30, Nsub=10))._step from the model's raw guess at
+# eta_init and lam_init (tests/gusto_reference.py prints both)
+GUSTO_SOFTPLUS_JAX = 1.2547460934031234
+FREEFLYER_STEP_JAX = dict(L_aug=155.55242036949812, J_aug=54.11570400304041,
+                          L=0.7240815778539907, rho=0.6259215654484812,
+                          viol=0.3198315048201782)
 PEAK_FLOPS = {"float32": 67e12,  # H100 SXM, outside the tensor cores
               "float64": 67e12}  # on the FP64 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12             # HBM3, bytes/s
@@ -103,10 +133,7 @@ def phase_environment(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    _precise(torch)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"[env] card: {card}")
@@ -851,15 +878,21 @@ def _run_scvx(torch, lk, ck, tag):
     return rec, shapes, sol
 
 
+def _keep_out(torch, xd):
+    """The smallest value of each quadrotor keep-out ellipsoid over the
+    nodes of xd (>= 1 outside)."""
+    from scptoolbox_torch.models.quadrotor import QuadrotorParameters
+
+    return [min(float(E(torch.as_tensor(r))) for r in xd[:, :3])
+            for E in QuadrotorParameters().obstacles()]
+
+
 def phase_quadrotor_scvx(torch, lk, ck):
     """scvx.solve(quadrotor(), N=30, Nsub=15, lam=30, iter_max=15): the
     quadrotor_scvx pin, and both keep-out values >= 1 - 1e-5 at every
     node."""
-    from scptoolbox_torch.models.quadrotor import QuadrotorParameters
-
     rec, shapes, sol = _run_scvx(torch, lk, ck, "quadrotor_scvx")
-    keep = [min(float(E(torch.as_tensor(r))) for r in sol.xd[:, :3])
-            for E in QuadrotorParameters().obstacles()]
+    keep = _keep_out(torch, sol.xd)
     rec["keep_out_min"] = keep
     log(f"[quadrotor_scvx] keep-out minima {keep}")
     assert min(keep) >= 1.0 - 1e-5, keep
@@ -940,6 +973,240 @@ def phase_quadrotor_scvx_batched(torch, lk, ck, B=8):
     assert _block_ipm_loops(solver, launches) == loops, (launches, loops)
     assert int(out["iters"][k]) == serial.iterations, rec
     assert col("eta") == [h.extras["eta"] for h in serial.history], rec
+    assert J_dev <= 1e-6, rec
+    return rec, shapes
+
+
+# tests/test_quadrotor.py:30-33 (the quadrotor_gusto pin) and :69-70
+GUSTO_PARS = {
+    "quadrotor_gusto": dict(N=30, Nsub=15, iter_max=15),
+    "quadrotor_gusto_softplus": dict(N=30, Nsub=15, iter_max=20,
+                                     pen="softplus", hom=500.0, lam_init=1e3),
+    "quadrotor_gusto_qrchol": dict(N=30, Nsub=15, iter_max=15,
+                                   kkt_method="qrchol")}
+
+
+def _gusto_setup(torch, lk, ck, tag, pbm, pars, project=True):
+    """(solver, record, shapes, projected guess or None) of a GuSTO phase's
+    set-up, float64 on the card: the constructor, then the guess projection
+    on its own, so that its ladder launches stay out of the loop's count."""
+    from scptoolbox_torch.solvers import gusto
+    from scptoolbox_torch.solvers.projection import project_convex
+
+    solver, setup_s, setup_launches, setup_shapes = _drive(
+        torch, lk, ck, lambda: gusto.GuSTO(pbm, gusto.GuSTOParameters(**pars),
+                                           dtype=torch.float64,
+                                           device="cuda"))
+    rec = dict(kkt=_kkt_path(solver), n=solver.tmpl.n, m=solver.tmpl.m,
+               nz=solver.spec.nz, nexp=solver.spec.nexp,
+               n_qX=solver.n_qX, dtype="float64", setup_s=setup_s,
+               setup_launches=setup_launches)
+    shapes = {f"{tag}_setup": setup_shapes}
+    guess = None
+    if project:
+        guess, proj_s, proj_launches, shapes[f"{tag}_projection"] = _drive(
+            torch, lk, ck, lambda: project_convex(
+                solver.pbm, solver.scaling, *solver._guess,
+                t_grid=solver.t_np, dtype=torch.float64, device="cuda"))
+        rec["projection"] = dict(wall_s=proj_s, launches=proj_launches)
+        assert _ladder_launched(proj_launches), proj_launches
+    log(f"[{tag}] set-up {setup_s:.1f} s: " + json.dumps(rec))
+    return solver, rec, shapes, guess
+
+
+def _gusto_history(sol):
+    return [dict(J_aug=h.J_aug, J=h.J_orig, rho=h.extras["rho"],
+                 eta=h.extras["eta"], lam=h.extras["lam"],
+                 accept=not h.extras["reject"], ipm_iters=h.ipm_iters,
+                 ipm_status=h.ipm_status, feas=h.feas,
+                 defect=h.defect_norm) for h in sol.history]
+
+
+def _ladder_loops(solver, launches):
+    """IPM loops of a run on a dense ladder, from its cholesky launches:
+    two a loop on the dense Schur KKT (H and the equality rows' S), one on
+    the QR-Cholesky KKT (the reduced normal matrix)."""
+    per = {"schur": 2, "qrchol": 1}[_kkt_path(solver)]
+    assert launches["cholesky"] % per == 0, (launches, per)
+    return launches["cholesky"] // per
+
+
+def _run_gusto(torch, lk, ck, tag, kkt):
+    """One serial GuSTO solve of the quadrotor in float64 on the card from
+    the projected guess (solve(warm=) with the set-up's projection):
+    SOLVED, feasible, keep-out values >= 1 - 5e-3 at every node (the JAX
+    test's obstacle_tol, tests/test_quadrotor.py:78), the KKT path `kkt`
+    with its ladder kernels launched, one factor for every IPM loop the
+    history counts."""
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.models.quadrotor import quadrotor
+    from scptoolbox_torch.solvers.solution import SCPSolution
+
+    solver, rec, shapes, guess = _gusto_setup(torch, lk, ck, tag,
+                                              quadrotor(), GUSTO_PARS[tag])
+    assert rec["kkt"] == kkt, rec
+    x, u, p = (a.cpu().numpy() for a in guess)
+    warm = SCPSolution(status=SCPStatus.FAILED, algorithm="projection",
+                       iterations=0, xd=x, ud=u, p=p, cost=math.nan,
+                       t_grid=solver.t_np, feas=False)
+    sol, wall, launches, shapes[tag] = _drive(
+        torch, lk, ck, lambda: solver.solve(warm=warm))
+    loops = _ladder_loops(solver, launches)
+    keep = _keep_out(torch, sol.xd)
+    rec.update(wall_s=wall, status=str(sol.status), feasible=bool(sol.feas),
+               iterations=sol.iterations, cost=sol.cost,
+               cost_rel_dev=abs(sol.cost / GUSTO_PIN - 1.0),
+               keep_out_min=keep, history=_gusto_history(sol),
+               ipm_loops=loops, launches=launches,
+               launches_per_ipm_loop={k: v / loops
+                                      for k, v in launches.items()})
+    log(f"[{tag}] " + json.dumps(rec))
+    assert sol.status == SCPStatus.SOLVED and sol.feas, rec
+    assert min(keep) >= 1.0 - 5e-3, keep
+    assert _ladder_launched(launches), launches
+    assert loops == sum(h.ipm_iters + 1 for h in sol.history), (
+        loops, rec["history"])
+    return rec, shapes
+
+
+def phase_quadrotor_gusto(torch, lk, ck):
+    """gusto.solve(quadrotor(), N=30, Nsub=15, iter_max=15): the
+    quadrotor_gusto pin's configuration, on the dense Schur ladder (n=483
+    < 600), the cost within the pin's relative 1e-3."""
+    rec, shapes = _run_gusto(torch, lk, ck, "quadrotor_gusto", "schur")
+    assert rec["cost_rel_dev"] <= 1e-3, rec
+    return rec, shapes
+
+
+def phase_quadrotor_gusto_softplus(torch, lk, ck):
+    """The softplus penalty (tests/test_quadrotor.py:69-70): 180 exp blocks
+    a subproblem, n=752 >= 600 in float64 but the dense Schur ladder (the
+    block sweep takes no exp cones); the cost within 1e-2 of the
+    quadrotor_gusto pin (the JAX test's gate) and 1e-3 of the JAX package's
+    own softplus cost."""
+    rec, shapes = _run_gusto(torch, lk, ck, "quadrotor_gusto_softplus",
+                             "schur")
+    rec["cost_rel_dev_jax"] = abs(rec["cost"] / GUSTO_SOFTPLUS_JAX - 1.0)
+    log("[quadrotor_gusto_softplus] cost against the JAX package's: "
+        f"{rec['cost_rel_dev_jax']:.3e}, IPM statuses "
+        f"{[h['ipm_status'] for h in rec['history']]}")
+    assert rec["nexp"] == 180, rec
+    assert rec["cost_rel_dev"] <= 1e-2, rec
+    assert rec["cost_rel_dev_jax"] <= 1e-3, rec
+    return rec, shapes
+
+
+def phase_quadrotor_gusto_qrchol(torch, lk, ck):
+    """The quadrotor_gusto configuration on kkt_method="qrchol": the reduced
+    (n - nz)² normal matrix on the ladder, both solves with R on the
+    triangular kernels; the cost within the pin's 1e-3."""
+    rec, shapes = _run_gusto(torch, lk, ck, "quadrotor_gusto_qrchol",
+                             "qrchol")
+    log("[quadrotor_gusto_qrchol] IPM statuses "
+        f"{[h['ipm_status'] for h in rec['history']]}")
+    assert rec["cost_rel_dev"] <= 1e-3, rec
+    return rec, shapes
+
+
+def phase_freeflyer_gusto_step(torch, lk, ck):
+    """One GuSTO step on the free-flyer (N=30, Nsub=10, the quad penalty,
+    the soft state set's 10 indicator slots a node) from the model's raw
+    guess at eta_init and lam_init, the step the serial solve takes, on the
+    dense Schur ladder (H 1593², S 403²): IPM OPTIMAL or ALMOST_OPTIMAL,
+    L_aug within 1e-6 and J_aug within 1e-5 relative of the JAX package's
+    values for the same step."""
+    from scptoolbox_torch.models.freeflyer import freeflyer
+    from scptoolbox_torch.ops.ipm import IPMStatus
+
+    tag = "freeflyer_gusto_step"
+    solver, rec, shapes, _ = _gusto_setup(
+        torch, lk, ck, tag, freeflyer(N=30), dict(N=30, Nsub=10),
+        project=False)
+    assert rec["kkt"] == "schur", rec
+    T1 = lambda v: torch.full((1,), v, dtype=torch.float64, device="cuda")
+    pars = solver.pars
+    ref = tuple(a[None] for a in solver._guess)
+
+    def step():
+        _, dltv = solver._ref_J_aug_impl(*ref, T1(pars.lam_init),
+                                         solver.consts)
+        return solver._step_impl(*ref, dltv, T1(pars.eta_init),
+                                 T1(pars.lam_init), solver.consts)
+
+    out, wall, launches, shapes[tag] = _drive(torch, lk, ck, step)
+    loops = _ladder_loops(solver, launches)
+    got = {k: float(out[k][0]) for k in ("L_aug", "J_aug", "L", "rho",
+                                         "viol", "defect_norm")}
+    dev = {k: abs(got[k] / v - 1.0) for k, v in FREEFLYER_STEP_JAX.items()}
+    rec.update(wall_s=wall, ipm_status=int(out["ipm_status"][0]),
+               ipm_iters=int(out["ipm_iters"][0]), values=got,
+               jax=FREEFLYER_STEP_JAX, rel_dev=dev, ipm_loops=loops,
+               launches=launches,
+               launches_per_ipm_loop={k: v / loops
+                                      for k, v in launches.items()})
+    log(f"[{tag}] " + json.dumps(rec))
+    assert rec["n_qX"] == 10 and rec["n"] == 1593, rec
+    assert rec["ipm_status"] in (int(IPMStatus.OPTIMAL),
+                                 int(IPMStatus.ALMOST_OPTIMAL)), rec
+    assert dev["L_aug"] <= 1e-6 and dev["J_aug"] <= 1e-5, rec
+    assert _ladder_launched(launches), launches
+    assert loops == rec["ipm_iters"] + 1, rec
+    return rec, shapes
+
+
+def phase_quadrotor_gusto_batched(torch, lk, ck, B=8):
+    """GuSTO.solve_batched at B=8 on the quadrotor from _scenario_batch's
+    guesses (2% spread; scenario B/2 is the guess itself), not projected:
+    all SOLVED and feasible, the ladder at nb 8 -> 1 as scenarios freeze.
+    The unscaled scenario repeats the serial solve from the same guess
+    (driven apart): the same iterations, eta and lambda traces, each
+    iteration's J_aug to 1e-6 relative (tests/test_batched.py:81)."""
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.models.quadrotor import quadrotor
+
+    tag = "quadrotor_gusto_batched"
+    solver, rec, shapes, _ = _gusto_setup(
+        torch, lk, ck, tag, quadrotor(),
+        dict(GUSTO_PARS["quadrotor_gusto"], project_guess=False),
+        project=False)
+    bx, bu, bp = _scenario_batch(torch, solver, B, 0.02)
+    k = B // 2
+    assert torch.equal(bx[k], solver._guess[0])
+    n_iters = solver.pars.iter_max
+    out, wall, launches, shapes[tag] = _drive(
+        torch, lk, ck, lambda: solver.solve_batched(bx, bu, bp, n_iters))
+    serial, serial_s, _, _ = _drive(torch, lk, ck, solver.solve)
+    status = out["status"].cpu().numpy()
+    feas = out["feas"].cpu().numpy()
+    cost = out["J_orig"].cpu().numpy()
+    loops = sum(int(t["ipm_iters"].max()) + 1 for t in out["traces"])
+    col = lambda key: [float(t[key][k]) for t in out["traces"]
+                       if bool(t["active"][k])]
+    J_dev = max(abs(a / h.J_aug - 1.0) for a, h in zip(col("J_aug"),
+                                                       serial.history))
+    rec.update(B=B, wall_s=wall, solves_per_s=B / wall,
+               solved=int((status == int(SCPStatus.SOLVED)).sum()),
+               feasible=int(feas.sum()),
+               iters=out["iters"].cpu().numpy().tolist(),
+               scp_steps=len(out["traces"]), ipm_loops=loops,
+               active=[int(t["active"].sum()) for t in out["traces"]],
+               cost_min=float(cost.min()), cost_max=float(cost.max()),
+               serial=dict(wall_s=serial_s, iterations=serial.iterations,
+                           status=str(serial.status), cost=serial.cost,
+                           history=_gusto_history(serial)),
+               unscaled_eta=col("eta"), unscaled_lam=col("lam"),
+               unscaled_J_aug_max_rel_dev=J_dev, launches=launches,
+               launches_per_ipm_loop={k_: v / loops
+                                      for k_, v in launches.items()})
+    log(f"[{tag}] " + json.dumps(rec))
+    assert (status == int(SCPStatus.SOLVED)).all(), rec
+    assert feas.all(), rec
+    assert _ladder_launched(launches), launches
+    assert _ladder_loops(solver, launches) == loops, (launches, loops)
+    assert int(out["iters"][k]) == serial.iterations, rec
+    for key in ("eta", "lam"):
+        assert col(key) == [h.extras[key] for h in serial.history], (key,
+                                                                     rec)
     assert J_dev <= 1e-6, rec
     return rec, shapes
 
@@ -1138,9 +1405,112 @@ PATHS = (("starship", phase_starship),
          ("quadrotor_scvx", phase_quadrotor_scvx),
          ("freeflyer_scvx", phase_freeflyer_scvx),
          ("starship_scvx", phase_starship_scvx),
-         ("quadrotor_scvx_batched", phase_quadrotor_scvx_batched))
+         ("quadrotor_scvx_batched", phase_quadrotor_scvx_batched),
+         ("quadrotor_gusto", phase_quadrotor_gusto),
+         ("quadrotor_gusto_softplus", phase_quadrotor_gusto_softplus),
+         ("quadrotor_gusto_qrchol", phase_quadrotor_gusto_qrchol),
+         ("freeflyer_gusto_step", phase_freeflyer_gusto_step),
+         ("quadrotor_gusto_batched", phase_quadrotor_gusto_batched))
 OPT_IN_PATHS = (("rendezvous_full", phase_rendezvous_full),)
 DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
+
+
+# each path phase's wall when this script ran them one after another on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (seconds, phase set-ups included):
+# the weights by which run_paths shares the phases out; a phase missing
+# here weighs 60
+PHASE_S = {"starship": 161.7, "starship_f64": 51.8,
+           "starship_f64_block": 40.5, "double_integrator_crpl": 10.4,
+           "double_integrator_schur": 5.4, "starship_serial_lu": 29.5,
+           "oscillator": 19.4, "lcvx": 35.7, "rendezvous_planar": 97.4,
+           "rendezvous_3d": 139.0, "quadrotor_scvx": 25.2,
+           "freeflyer_scvx": 119.7, "starship_scvx": 195.9,
+           "quadrotor_scvx_batched": 47.4, "quadrotor_gusto": 17.7,
+           "quadrotor_gusto_softplus": 26.4, "quadrotor_gusto_qrchol": 17.0,
+           "freeflyer_gusto_step": 4.8, "quadrotor_gusto_batched": 28.1}
+
+
+def _precise(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def _run_phases(torch, names):
+    """Run the path phases `names` in this process, in PATHS order:
+    ({name: record}, {path: launch shapes})."""
+    from scptoolbox_torch.ops import chol_kernels as ck
+    from scptoolbox_torch.ops import lu_kernels as lk
+
+    record, shapes_by_path = {}, {}
+    for name, fn in PATHS + OPT_IN_PATHS:
+        if name in names:
+            t0 = time.perf_counter()
+            record[name], shapes = fn(torch, lk, ck)
+            shapes_by_path.update(shapes)
+            log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+    return record, shapes_by_path
+
+
+def _groups(names, workers):
+    """The phases shared out over `workers` processes, heaviest first to
+    the least loaded (PHASE_S)."""
+    load = [[0.0, []] for _ in range(workers)]
+    for name in sorted(names, key=lambda n: -PHASE_S.get(n, 60.0)):
+        slot = min(load, key=lambda g: g[0])
+        slot[0] += PHASE_S.get(name, 60.0)
+        slot[1].append(name)
+    return [g[1] for g in load if g[1]]
+
+
+def run_paths(torch, names, workers):
+    """Every path phase in `names`, over `workers` processes that share the
+    card (each path's launch counts and shapes are its own process's); one
+    worker runs them here. The paths are host-bound, so the processes
+    overlap almost wholly; their walls are taken side by side."""
+    groups = _groups(names, workers)
+    if len(groups) <= 1:
+        return _run_phases(torch, names)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"worker{i}.json")
+            for i in range(len(groups))]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--worker", ",".join(g), "--out", out])
+             for g, out in zip(groups, outs)]
+    try:
+        for g, proc in zip(groups, procs):
+            assert proc.wait() == 0, f"worker for {g} failed"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    record, shapes_by_path = {}, {}
+    for out in outs:
+        with open(out) as f:
+            part = json.load(f)
+        record.update(part["record"])
+        for path, items in part["shapes"].items():
+            shapes_by_path[path] = collections.Counter(
+                {tuple(k): c for k, c in items})
+    return record, shapes_by_path
+
+
+def worker(names, out):
+    """A worker process of run_paths: its phases' records and launch
+    shapes to the file `out`."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    _precise(torch)
+    record, shapes_by_path = _run_phases(torch, names.split(","))
+    with open(out, "w") as f:
+        json.dump({"record": record, "shapes": {
+            path: [[list(k), c] for k, c in shapes.items()]
+            for path, shapes in shapes_by_path.items()}}, f)
+    return 0
 
 
 def main():
@@ -1149,7 +1519,14 @@ def main():
                     help="comma-separated phases to run; also "
                     "rendezvous_full, gmres and profile, which are not run "
                     "by default")
+    ap.add_argument("--workers", type=int, default=3,
+                    help="processes the path phases are shared over (1: "
+                    "one after another in this process, each wall alone)")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker, args.out)
     phases = args.phases.split(",")
 
     import torch
@@ -1169,13 +1546,14 @@ def main():
     for path in cuda_lib.build_all([lk.LIB, ck.LIB, gk.LIB], verbose=True):
         log(f"[build] {os.path.relpath(path, REPO)}")
     log(f"[build] {time.perf_counter() - t0:.1f} s")
-    shapes_by_path = {}
-    for name, fn in PATHS + OPT_IN_PATHS:
-        if name in phases:
-            t0 = time.perf_counter()
-            record[name], shapes = fn(torch, lk, ck)
-            shapes_by_path.update(shapes)
-            log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths, shapes_by_path = run_paths(
+        torch, [n for n, _ in PATHS + OPT_IN_PATHS if n in phases],
+        args.workers)
+    record.update(paths)
+    record["paths_s"] = time.perf_counter() - t0
+    record["workers"] = args.workers
+    log(f"[paths] {record['paths_s']:.1f} s over {args.workers} workers")
     if "kernels" in phases:
         record["kernels"] = phase_kernels(torch, lk, ck, gk, shapes_by_path)
         record["kernel_time_s"] = _kernel_time(record["kernels"],

@@ -1,30 +1,50 @@
-"""Cone toolkit for the batched IPM: zero / nonneg / second-order cones.
+"""Cone toolkit for the batched IPM: zero / nonneg / second-order /
+exponential cones.
 
-Counterpart of `scptoolbox_tpu/ops/cones.py:52-499` without the exponential
-cone. Every function works on a trailing cone dimension m with any leading
-batch dimensions: vectors are (B, m) or (B, K, m). The NT scaling of a
-batch of iterates carries a leading B on each of its fields, and applying it
-to (B, K, m) broadcasts over K.
+Counterpart of `scptoolbox_tpu/ops/cones.py` (`EXP_PRIMAL_CENTRAL` /
+`EXP_DUAL_CENTRAL` :45-47, `ConeSpec` :52 with `exp_indices` :102,
+`_exp_dual_barrier` :142, `exp_dual_grad_hess` :150, `exp_interior` :158,
+`max_step` :214, `nt_scaling` :311, `scale` :391, `w2_dense` :408,
+`lambda_vec` :436, `exp_violation` :477, `violation` :499). Every function
+works on a trailing cone dimension m with any leading batch dimensions:
+vectors are (B, m) or (B, K, m). The scaling of a batch of iterates carries
+a leading B on each of its fields, and applying it to (B, K, m) broadcasts
+over K.
 
-The flat slack/dual layout is [zero | nonneg | soc_1 | ... | soc_k]; SOC
-blocks of equal dimension are processed together as one (..., k, d) tensor.
+The flat slack/dual layout is [zero | nonneg | soc_1 | ... | soc_k |
+exp_1 | ... | exp_j]; SOC blocks of equal dimension are processed together
+as one (..., k, d) tensor, the 3-row exp blocks as one (..., j, 3) tensor.
+Exponential cone (MOI ordering):
+
+  K_exp  = cl{(x, y, z) : y > 0,  y e^{x/y} <= z}
+  K_exp* = cl{(u, v, w) : u < 0,  -u e^{v/u} <= e w}
+
+with the dual barrier F*(u,v,w) = -log(u log(-u/w) + v - u) - log(-u)
+- log w. Its blocks are scaled by a primal-dual BFGS update of
+mu hess F*(z), not by the Jordan algebra of the symmetric cones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 
+# central points e* of the exp-cone barriers (grad F(e*) = -e*)
+EXP_PRIMAL_CENTRAL = (-0.8278384059008612, 0.8051020015847954,
+                      1.2909277098569585)
+EXP_DUAL_CENTRAL = (-1.0513839437502288, 0.5564096194693704,
+                    1.2589678864644602)
+
+
 @dataclasses.dataclass(frozen=True)
 class ConeSpec:
-    """Static description of a product cone K = 0^nz x R+^nl x SOC(d1) x ...
-    (`nexp` is carried for layout parity; the exponential cone is not part
-    of this port yet)."""
+    """Static description of a product cone
+    K = 0^nz x R+^nl x SOC(d1) x ... x EXP^nexp."""
 
     nz: int = 0
     nl: int = 0
@@ -34,9 +54,6 @@ class ConeSpec:
     def __post_init__(self):
         object.__setattr__(self, "socs", tuple(int(d) for d in self.socs))
         assert all(d >= 2 for d in self.socs), "SOC blocks need dim >= 2"
-        if self.nexp:
-            raise NotImplementedError(
-                "exponential cones are not ported yet (they come with GuSTO)")
 
     @property
     def m(self) -> int:
@@ -64,6 +81,13 @@ class ConeSpec:
         return {d: s[:, None] + np.arange(d)[None, :]
                 for d, s in self.soc_groups().items()}
 
+    def exp_indices(self) -> np.ndarray:
+        """(nexp, 3) absolute row indices of the exp blocks (after the SOC
+        blocks)."""
+        off = self.nz + self.nl + sum(self.socs)
+        return (off + 3 * np.arange(self.nexp)[:, None]
+                + np.arange(3)[None, :])
+
     @property
     def lin_slice(self) -> slice:
         return slice(self.nz, self.nz + self.nl)
@@ -90,6 +114,16 @@ def soc_idx(spec: ConeSpec, device) -> Tuple[Tuple[int, torch.Tensor], ...]:
     return _soc_idx(spec, torch.device(device))
 
 
+@functools.lru_cache(maxsize=None)
+def _exp_idx(spec: ConeSpec, device: torch.device):
+    return torch.as_tensor(spec.exp_indices(), device=device)
+
+
+def exp_idx(spec: ConeSpec, device) -> torch.Tensor:
+    """The (nexp, 3) exp-block row indices as a LongTensor on `device`."""
+    return _exp_idx(spec, torch.device(device))
+
+
 def _bw(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """View a scaling field w (B, *f) so it broadcasts against a vector
     batch v (B, ..., m): one singleton dim after B per extra lead dim."""
@@ -108,6 +142,66 @@ def identity_elem(spec: ConeSpec, dtype, device) -> torch.Tensor:
         e[off] = 1.0
         off += d
     return torch.as_tensor(e, dtype=dtype, device=device)
+
+
+def exp_dual_grad_hess(zb):
+    """Gradient (..., 3) and Hessian (..., 3, 3) of the dual barrier
+    F*(u,v,w) = -log(psi) - log(-u) - log(w), psi = u log(-u/w) + v - u,
+    at blocks zb (..., 3) strictly inside K_exp*, in closed form."""
+    u, v, w = zb[..., 0], zb[..., 1], zb[..., 2]
+    lg = torch.log(-u / w)
+    psi = u * lg + v - u
+    # grad psi = (log(-u/w), 1, -u/w); hess psi = [[1/u, 0, -1/w], [0, 0, 0],
+    # [-1/w, 0, u/w^2]]
+    dpsi = torch.stack([lg, torch.ones_like(u), -u / w], dim=-1)
+    g = -dpsi / psi[..., None] - torch.stack(
+        [1.0 / u, torch.zeros_like(u), 1.0 / w], dim=-1)
+    z = torch.zeros_like(u)
+    h2 = torch.stack([torch.stack([1.0 / u, z, -1.0 / w], -1),
+                      torch.stack([z, z, z], -1),
+                      torch.stack([-1.0 / w, z, u / w ** 2], -1)], -2)
+    H = (-h2 / psi[..., None, None]
+         + dpsi[..., :, None] * dpsi[..., None, :] / (psi ** 2)[..., None,
+                                                                 None]
+         + torch.diag_embed(torch.stack([1.0 / u ** 2, z, 1.0 / w ** 2],
+                                        -1)))
+    return g, H
+
+
+def exp_interior(vb, dual: bool, margin=0.0):
+    """(...,) bool: strict interior membership of blocks vb (..., 3) in
+    K_exp (dual=False) or K_exp* (dual=True), with an optional margin on
+    the barrier argument; the logs are guarded."""
+    a, b, c = vb[..., 0], vb[..., 1], vb[..., 2]
+    one = torch.ones_like(a)
+    if dual:
+        # u < 0, w > 0, u log(-u/w) + v - u > margin
+        pos = (a < 0.0) & (c > 0.0)
+        psi = a * torch.log(torch.where(pos, -a, one)
+                            / torch.where(pos, c, one)) + b - a
+        return pos & (psi > margin)
+    # y > 0, z > 0, y log(z/y) - x > margin
+    pos = (b > 0.0) & (c > 0.0)
+    r = b * torch.log(torch.where(pos, c, one)
+                      / torch.where(pos, b, one)) - a
+    return pos & (r > margin)
+
+
+def exp_violation(vb) -> torch.Tensor:
+    """Feasibility gap of blocks vb (..., 3) against K_exp, 0 iff in the
+    cone: max(0, x - y log(z/y), -z) for y, z > 0; max(-z, y) for y > 0,
+    z <= 0 (outside the cone by at least y); max(x, -z, -y) on the face
+    y <= 0."""
+    x, y, z = vb[..., 0], vb[..., 1], vb[..., 2]
+    ypos = y > 0.0
+    zpos = z > 0.0
+    one = torch.ones_like(y)
+    r_int = torch.maximum(x - y * torch.log(torch.where(zpos, z, one)
+                                            / torch.where(ypos, y, one)), -z)
+    r_face = torch.maximum(x, torch.maximum(-z, -y))
+    r_ynegz = torch.maximum(-z, y)
+    r = torch.where(ypos & zpos, r_int, torch.where(ypos, r_ynegz, r_face))
+    return torch.clamp(r, min=0.0)
 
 
 def cone_product(spec: ConeSpec, u, v) -> torch.Tensor:
@@ -142,9 +236,11 @@ def cone_div(spec: ConeSpec, lam, v) -> torch.Tensor:
     return out
 
 
-def max_step(spec: ConeSpec, u, du, big: float = 1e12) -> torch.Tensor:
+def max_step(spec: ConeSpec, u, du, big: float = 1e12,
+             dual: bool = False) -> torch.Tensor:
     """Largest alpha >= 0 with u + alpha*du in K (zero rows ignored), per
-    leading batch entry: u, du (B, m) -> (B,), capped at `big`."""
+    leading batch entry: u, du (B, m) -> (B,), capped at `big`. `dual`
+    selects K_exp* for the exp blocks (pass True when stepping z)."""
     bigt = torch.full(u.shape[:-1], big, dtype=u.dtype, device=u.device)
     alpha = bigt
     sl = spec.lin_slice
@@ -177,23 +273,51 @@ def max_step(spec: ConeSpec, u, du, big: float = 1e12) -> torch.Tensor:
         head = torch.where(d0 < 0, -u0 / torch.where(d0 < 0, d0, -1.0), bigk)
         alpha = torch.minimum(alpha,
                               torch.minimum(root, head).min(dim=-1).values)
-    return torch.minimum(alpha, bigt)
+    alpha = torch.minimum(alpha, bigt)
+    if spec.nexp > 0:
+        # the feasible alphas of a ray from an interior point form an
+        # interval [0, a*): 90 bisection steps on strict-interior
+        # membership, unless the whole step is feasible; every step stays
+        # on the device (no host sync)
+        idx = exp_idx(spec, u.device)
+        ub, db = u[..., idx], du[..., idx]
+
+        def feas(a):
+            return exp_interior(ub + a[..., None, None] * db, dual).all(-1)
+
+        lo, hi = torch.zeros_like(alpha), alpha
+        for _ in range(90):
+            mid = 0.5 * (lo + hi)
+            ok = feas(mid)
+            lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+        alpha = torch.where(feas(alpha), alpha, lo)
+    return alpha
 
 
 class NTScaling(NamedTuple):
-    """Nesterov-Todd scaling point for R+^nl x SOC products, per batch entry:
+    """Scaling point for R+^nl x SOC products x EXP^nexp, per batch entry.
+    Nesterov-Todd on the symmetric cones:
       w_l:  (B, nl) with W_lin = diag(w_l)
       socs: per dim-group (eta (B, k, 1), wbar (B, k, d)) with
-            W_soc = eta * [[w0, w1'], [w1, I + w1 w1'/(1+w0)]]."""
+            W_soc = eta * [[w0, w1'], [w1, I + w1 w1'/(1+w0)]].
+    A primal-dual BFGS scaling on the exp blocks (None without them):
+      exp_W / exp_Winv: (B, j, 3, 3) symmetric square root of W^2 and its
+                        inverse; exp_H: (B, j, 3, 3) W^2 itself;
+      exp_g: (B, j, 3) the dual barrier's gradient at z."""
 
     w_l: torch.Tensor
     socs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     soc_dims: Tuple[int, ...]
+    exp_W: Optional[torch.Tensor] = None
+    exp_Winv: Optional[torch.Tensor] = None
+    exp_H: Optional[torch.Tensor] = None
+    exp_g: Optional[torch.Tensor] = None
 
 
-def nt_scaling(spec: ConeSpec, s, z) -> NTScaling:
+def nt_scaling(spec: ConeSpec, s, z, mu=None) -> NTScaling:
     """The scaling from strictly interior s, z (B, m); every sqrt argument is
-    floored at `tiny` so boundary-grazing iterates degrade gracefully."""
+    floored at `tiny` so boundary-grazing iterates degrade gracefully. `mu`
+    (the barrier parameter) is required when the spec has exp blocks."""
     tiny = 1e-300 if s.dtype == torch.float64 else 1e-30
     sl = spec.lin_slice
     w_l = (torch.sqrt(torch.clamp(s[..., sl] / z[..., sl], min=tiny))
@@ -218,7 +342,41 @@ def nt_scaling(spec: ConeSpec, s, z) -> NTScaling:
         eta = torch.sqrt(torch.clamp(res_s / res_z, min=tiny))
         socs.append((eta, wbar))
         dims.append(d)
-    return NTScaling(w_l, tuple(socs), tuple(dims))
+    exp_W = exp_Winv = exp_H = exp_g = None
+    if spec.nexp > 0:
+        assert mu is not None, "exp-cone scaling needs the barrier parameter"
+        idx = exp_idx(spec, s.device)
+        zb, sb = z[..., idx], s[..., idx]
+        g, H = exp_dual_grad_hess(zb)
+        # start from mu_b hess F*(z), mu_b = s'z / 3 per block, and apply the
+        # BFGS double rank-1 update so that the secant W^2 z = s holds
+        sz = torch.clamp(torch.sum(sb * zb, dim=-1), min=tiny)
+        H0 = (sz / 3.0)[..., None, None] * H
+        H0z = (H0 @ zb[..., None])[..., 0]
+        zH0z = torch.clamp(torch.sum(zb * H0z, dim=-1), min=tiny)
+        W2 = (H0 - H0z[..., :, None] * H0z[..., None, :]
+              / zH0z[..., None, None]
+              + sb[..., :, None] * sb[..., None, :] / sz[..., None, None])
+        # a non-finite block (a boundary-grazing iterate) gives NaN, as in
+        # JAX, where torch.linalg.eigh would raise: the IPM's guard then
+        # discards the step
+        bad = ~torch.isfinite(W2).all(dim=-1).all(dim=-1)
+        eye = torch.eye(3, dtype=W2.dtype, device=W2.device)
+        lam_e, U = torch.linalg.eigh(torch.where(bad[..., None, None], eye,
+                                                 W2))   # ascending
+        lam_e = torch.where(bad[..., None], torch.nan, lam_e)
+        # relative floor: the BFGS subtraction leaves W2 singular along
+        # directions roundoff can push slightly negative
+        eps_r = 1e-13 if s.dtype == torch.float64 else 1e-6
+        lam_e = torch.maximum(lam_e, eps_r * lam_e[..., -1:])
+        sq = torch.sqrt(lam_e)
+        Ut = U.transpose(-1, -2)
+        exp_W = (U * sq[..., None, :]) @ Ut
+        exp_Winv = (U / sq[..., None, :]) @ Ut
+        exp_H = W2
+        exp_g = g
+    return NTScaling(w_l, tuple(socs), tuple(dims), exp_W=exp_W,
+                     exp_Winv=exp_Winv, exp_H=exp_H, exp_g=exp_g)
 
 
 def _soc_apply(eta, wbar, v, inverse: bool):
@@ -246,6 +404,10 @@ def scale(spec: ConeSpec, W: NTScaling, v, inverse: bool = False):
         idx = groups[d]
         out[..., idx] = _soc_apply(_bw(eta, v), _bw(wbar, v),
                                    v[..., idx], inverse)
+    if spec.nexp > 0 and W.exp_W is not None:
+        idx = exp_idx(spec, v.device)
+        M = _bw(W.exp_Winv if inverse else W.exp_W, v)
+        out[..., idx] = (M @ v[..., idx, None])[..., 0]
     return out
 
 
@@ -266,19 +428,27 @@ def w2_dense(spec: ConeSpec, W: NTScaling) -> torch.Tensor:
         blocks = (eta ** 2)[..., None] * (
             2.0 * wbar[..., :, None] * wbar[..., None, :] - torch.diag(J))
         out[:, idx[:, :, None], idx[:, None, :]] = blocks
+    if spec.nexp > 0 and W.exp_H is not None:
+        idx = exp_idx(spec, dev)
+        out[:, idx[:, :, None], idx[:, None, :]] = W.exp_H
     return out
 
 
 def lambda_vec(spec: ConeSpec, W: NTScaling, z) -> torch.Tensor:
-    """lambda = W z (zero on zero-cone rows)."""
+    """lambda = W z (zero on zero-cone rows, and on exp rows: the
+    nonsymmetric blocks take their central-path target directly)."""
     lam = scale(spec, W, z)
     if spec.nz > 0:
         lam[..., spec.zero_slice] = 0.0
+    if spec.nexp > 0:
+        lam[..., exp_idx(spec, z.device)] = 0.0
     return lam
 
 
 def project(spec: ConeSpec, v) -> torch.Tensor:
-    """Euclidean projection onto K (0 on zero rows)."""
+    """Euclidean projection onto K (0 on zero rows); the exp cone has no
+    closed form (use violation())."""
+    assert spec.nexp == 0, "no closed-form projection onto the exp cone"
     out = v.clone()
     if spec.nz > 0:
         out[..., spec.zero_slice] = 0.0
@@ -300,7 +470,15 @@ def project(spec: ConeSpec, v) -> torch.Tensor:
 
 
 def violation(spec: ConeSpec, v) -> torch.Tensor:
-    """||v - proj_K(v)||_inf per leading batch entry (zero rows as |v|)."""
-    if spec.m == 0:
-        return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
-    return torch.amax(torch.abs(v - project(spec, v)), dim=-1)
+    """||v - proj_K(v)||_inf per leading batch entry (zero rows as |v|),
+    exp rows by their feasibility gap (exp_violation)."""
+    out = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    if spec.nexp > 0:
+        out = torch.amax(exp_violation(v[..., exp_idx(spec, v.device)]),
+                         dim=-1)
+        spec = ConeSpec(nz=spec.nz, nl=spec.nl, socs=spec.socs)
+        v = v[..., : spec.m]
+    if spec.m > 0:
+        out = torch.maximum(out, torch.amax(
+            torch.abs(v - project(spec, v)), dim=-1))
+    return out

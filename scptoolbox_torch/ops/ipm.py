@@ -1,7 +1,11 @@
 """Batched primal-dual interior-point method for conic programs.
 
 Counterpart of `scptoolbox_tpu/ops/ipm.py:434-806`: a homogeneous self-dual
-embedding (HSDE) Mehrotra predictor-corrector over zero / nonneg / SOC cones,
+embedding (HSDE) Mehrotra predictor-corrector over zero / nonneg / SOC cones
+and the nonsymmetric exponential cone (its blocks start at the barrier's
+central points, are scaled by ops/cones.py's BFGS update of mu hess F*(z),
+take the central-path target without a Mehrotra term, and keep their gaps
+centred by a back-tracking of the step, :532-540, :609, :630-637, :683-706),
 
     minimize c'x  subject to  A x + s = b,  s in K,
 
@@ -59,6 +63,23 @@ def _apply_cols(fn, M):
     return fn(M.transpose(1, 2)).transpose(1, 2)
 
 
+def _winv_rows(spec, W, M, times):
+    """W^-times (1 or 2) applied to the columns of the cone rows' M
+    (B, m - nz, k)."""
+    if W is None:
+        return M
+    full = torch.zeros(M.shape[0], spec.m, M.shape[2], dtype=M.dtype,
+                       device=M.device)
+    full[:, spec.nz:] = M
+
+    def inv(v):
+        for _ in range(times):
+            v = cn.scale(spec, W, v, inverse=True)
+        return v
+
+    return _apply_cols(inv, full)[:, spec.nz:]
+
+
 def _w2_matvec(spec, W, M, cone_mask):
     """W^2 applied to the columns of M (B, m, K) (0 on zero rows)."""
     if W is None:
@@ -103,6 +124,74 @@ class _LUKKT:
         return sol
 
 
+class _QRCholKKT:
+    """Null-space KKT solve (scptoolbox_tpu/ops/ipm.py:158, CVXOPT conelp's
+    QR kktsolver): A = [A_E; A_C] with the equality rows first, the complete
+    QR A_E' = Q R, Q = [Q1 Q2], computed once per subproblem by
+    torch.linalg.qr. Then per IPM iteration the Cholesky factor of the
+    reduced normal matrix G'G + eps I, G = W^-1 A_C Q2, and
+
+        R' y1 = rhs_E,  (G'G) y2 = Q2'(rhs_x + A_C' W^-2 rhs_C)
+                                   - Q2' A_C' W^-2 A_C Q1 y1,
+        dx = Q1 y1 + Q2 y2,  dz_C = W^-2 (A_C dx - rhs_C),
+        R dz_E = Q1'(rhs_x - A_C' dz_C),
+
+    refined twice against the exact operator. The factor, its cho_solve and
+    both solves with R (solve_lower with L = R', solve_lower_t with the same
+    L) go through ops/chol_kernels.py: the card's kernels on a CUDA tensor,
+    their plain versions on a CPU one."""
+
+    def __init__(self, spec, A, reg_eps, cone_mask):
+        self.spec, self.A, self.reg_eps = spec, A, reg_eps
+        self.cone_mask = cone_mask
+        self.n, self.m = A.shape[2], A.shape[1]
+        self.nz = spec.nz
+        Q, R = torch.linalg.qr(A[:, : self.nz].transpose(1, 2),
+                               mode="complete")
+        self.Q1 = Q[:, :, : self.nz]
+        self.Q2 = Q[:, :, self.nz:]
+        self.Rt = R[:, : self.nz].transpose(1, 2).contiguous()  # lower
+        self.A_C = A[:, self.nz:]
+
+    def factor(self, W):
+        G = _winv_rows(self.spec, W, self.A_C @ self.Q2, 1)
+        nred = G.shape[2]
+        M = G.transpose(1, 2) @ G + self.reg_eps * torch.eye(
+            nred, dtype=G.dtype, device=G.device)
+        return (chol_kernels.cholesky(M), W)
+
+    def _solve_once(self, fac, rhs):
+        L, W = fac
+        n, nz = self.n, self.nz
+        rx = rhs[:, :n]
+        rE = rhs[:, n: n + nz]
+        rC = rhs[:, n + nz:]
+        ACt = self.A_C.transpose(1, 2)
+        w2 = lambda M: _winv_rows(self.spec, W, M, 2)
+        y1 = chol_kernels.solve_lower(self.Rt, rE)
+        WirC = w2(rC)
+        t = self.Q2.transpose(1, 2) @ (rx + ACt @ WirC)
+        t = t - self.Q2.transpose(1, 2) @ (ACt @ w2(
+            self.A_C @ (self.Q1 @ y1)))
+        dx = self.Q1 @ y1 + self.Q2 @ chol_kernels.cho_solve(L, t)
+        dzC = w2(self.A_C @ dx) - WirC
+        dzE = chol_kernels.solve_lower_t(
+            self.Rt, self.Q1.transpose(1, 2) @ (rx - ACt @ dzC))
+        return torch.cat([dx, dzE, dzC], dim=1)
+
+    def solve(self, fac, rhs):
+        W = fac[1]
+        sol = self._solve_once(fac, rhs)
+        n = self.n
+        for _ in range(2):
+            w2z = _w2_matvec(self.spec, W, sol[:, n:], self.cone_mask)
+            resid = rhs - torch.cat(
+                [self.A.transpose(1, 2) @ sol[:, n:],
+                 self.A @ sol[:, :n] - w2z], dim=1)
+            sol = sol + self._solve_once(fac, resid)
+        return sol
+
+
 class _SchurKKT:
     """Reduced (normal-equations) KKT solve, the default
     (scptoolbox_tpu/ops/ipm.py:237): the cone rows are eliminated,
@@ -125,22 +214,11 @@ class _SchurKKT:
         self.A_C = A[:, self.nz:]
         self.use_lu = A.device.type == "cpu"
 
-    def _winv2(self, W, M):
-        """W^-2 applied to the columns of M (B, m_C, k)."""
-        if W is None:
-            return M
-        full = torch.zeros(M.shape[0], self.m, M.shape[2], dtype=M.dtype,
-                           device=M.device)
-        full[:, self.nz:] = M
-        inv = lambda v: cn.scale(self.spec, W, cn.scale(
-            self.spec, W, v, inverse=True), inverse=True)
-        return _apply_cols(inv, full)[:, self.nz:]
-
     def factor(self, W):
         n, nz = self.n, self.nz
         dt, dev = self.A.dtype, self.A.device
         Bn = self.A.shape[0]
-        WiAC = self._winv2(W, self.A_C)
+        WiAC = _winv_rows(self.spec, W, self.A_C, 2)
         H = self.A_C.transpose(1, 2) @ WiAC
         # ~100 eps of the diagonal keeps the factor positive under roundoff
         # near convergence; refinement recovers what the shift costs
@@ -169,7 +247,7 @@ class _SchurKKT:
         rx = rhs[:, :n]
         rE = rhs[:, n: n + nz]
         rC = rhs[:, n + nz:]
-        r1 = rx + self.A_C.transpose(1, 2) @ self._winv2(W, rC)
+        r1 = rx + self.A_C.transpose(1, 2) @ _winv_rows(self.spec, W, rC, 2)
         if kind == "lu":
             sol = torch.linalg.lu_solve(*data, torch.cat([r1, rE], dim=1))
             dx, dzE = sol[:, :n], sol[:, n:]
@@ -178,7 +256,7 @@ class _SchurKKT:
             y = chol_kernels.cho_solve(L_H, r1)
             dzE = chol_kernels.cho_solve(L_S, self.A_E @ y - rE)
             dx = y - HiAE @ dzE
-        dzC = self._winv2(W, self.A_C @ dx - rC)
+        dzC = _winv_rows(self.spec, W, self.A_C @ dx - rC, 2)
         return torch.cat([dx, dzE, dzC], dim=1)
 
     def solve(self, fac, rhs):
@@ -194,20 +272,23 @@ class _SchurKKT:
         return sol
 
 
-_KKT_METHODS = {"lu": _LUKKT, "schur": _SchurKKT}
+_KKT_METHODS = {"lu": _LUKKT, "qrchol": _QRCholKKT, "schur": _SchurKKT}
 
 
 def _equilibrate(spec: ConeSpec, A, iters: int = 3):
     """Cone-aware Ruiz equilibration: (R (B, m), D (B, n)) with R A D of
-    near-unit row/column inf-norms; uniform within each SOC block."""
+    near-unit row/column inf-norms; uniform within each SOC block and each
+    exp block (only a ray scaling keeps exp membership)."""
     Bn, m, n = A.shape
     R = torch.ones(Bn, m, dtype=A.dtype, device=A.device)
     D = torch.ones(Bn, n, dtype=A.dtype, device=A.device)
-    soc = cn.soc_idx(spec, A.device)
+    blocks = [idx for _, idx in cn.soc_idx(spec, A.device)]
+    if spec.nexp > 0:
+        blocks.append(cn.exp_idx(spec, A.device))
     for _ in range(iters):
         As = torch.abs(R[:, :, None] * A * D[:, None, :])
         rmax = torch.amax(As, dim=2)
-        for d, idx in soc:
+        for idx in blocks:
             blk = torch.amax(rmax[:, idx], dim=2, keepdim=True)
             rmax[:, idx] = blk.expand(Bn, *idx.shape)
         rmax = torch.where(rmax > 0, rmax, torch.ones_like(rmax))
@@ -316,6 +397,13 @@ def _solve_impl(A, b, c, spec, *, tol=1e-8, tol_almost=1e-5, max_iter=50,
     x0 = sol0[:, :n, 0]
     s0 = _shift_interior(spec, -sol0[:, n:, 0] * cone_mask)
     z0 = _shift_interior(spec, sol0[:, n:, 1])
+    eidx = cn.exp_idx(spec, dev) if spec.nexp > 0 else None
+    if eidx is not None:
+        # exp blocks start at the barriers' central points
+        s0[:, eidx] = torch.as_tensor(cn.EXP_PRIMAL_CENTRAL, dtype=dt,
+                                      device=dev)
+        z0[:, eidx] = torch.as_tensor(cn.EXP_DUAL_CENTRAL, dtype=dt,
+                                      device=dev)
 
     def residuals(x, s, z, tau, kappa, Ai, bi, ci):
         rx = (Ai.transpose(1, 2) @ z[:, :, None])[..., 0] + ci * tau[:, None]
@@ -376,7 +464,7 @@ def _solve_impl(A, b, c, spec, *, tol=1e-8, tol_almost=1e-5, max_iter=50,
                                cur["kappa"])
         rx, rz, rtau = residuals(x, s, z, tau, kappa, Ai, bi, ci)
         mu = (_dot(s, z) + tau * kappa) / (deg + 1)
-        W = cn.nt_scaling(spec, s, z)
+        W = cn.nt_scaling(spec, s, z, mu=mu)
         lam = cn.lambda_vec(spec, W, z)
         fac = kkt_i.factor(W)
 
@@ -386,6 +474,11 @@ def _solve_impl(A, b, c, spec, *, tol=1e-8, tol_almost=1e-5, max_iter=50,
                    + (sigma * mu)[:, None] * e)
             d_kap = -tau * kappa - dkap_corr + sigma * mu
             bs = cn.scale(spec, W, cn.cone_div(spec, lam, d_s)) * cone_mask
+            if eidx is not None:
+                # exp central path s = -mu grad F*(z), linearized: the
+                # target goes straight into bs (no Mehrotra term)
+                bs[:, eidx] = (-s[:, eidx]
+                               - (sigma * mu)[:, None, None] * W.exp_g)
             rhs = torch.stack([
                 torch.cat([-ci, bi], 1),
                 torch.cat([-one_m_sig[:, None] * rx,
@@ -407,8 +500,8 @@ def _solve_impl(A, b, c, spec, *, tol=1e-8, tol_almost=1e-5, max_iter=50,
         bigs = torch.full((Bs,), torch.inf, dtype=dt, device=dev)
 
         def step_len(ds, dz, dtau, dkap):
-            a_s = cn.max_step(spec, s, ds)
-            a_z = cn.max_step(spec, z, dz)
+            a_s = cn.max_step(spec, s, ds, dual=False)
+            a_z = cn.max_step(spec, z, dz, dual=True)
             a_t = torch.where(dtau < 0,
                               -tau / torch.clamp(dtau, max=-1e-30), bigs)
             a_k = torch.where(dkap < 0,
@@ -427,6 +520,20 @@ def _solve_impl(A, b, c, spec, *, tol=1e-8, tol_almost=1e-5, max_iter=50,
         dkap_corr = dt_a * dk_a
         dx, dz, ds, dtau, dkap = directions(sigma, eta, dkap_corr)
         alpha = torch.clamp(0.99 * step_len(ds, dz, dtau, dkap), max=1.0)
+        if eidx is not None:
+            # centrality safeguard: back-track (30 steps of 0.8, on the
+            # device) until every exp block keeps s_i'z_i >= 1e-2 mu(alpha)
+            se, ze = s[:, eidx], z[:, eidx]
+            dse, dze = ds[:, eidx], dz[:, eidx]
+            for _ in range(30):
+                a1 = alpha[:, None]
+                mu_n = (_dot(s + a1 * ds, z + a1 * dz)
+                        + (tau + alpha * dtau) * (kappa + alpha * dkap)
+                        ) / (deg + 1)
+                a2 = alpha[:, None, None]
+                gaps = torch.sum((se + a2 * dse) * (ze + a2 * dze), dim=-1)
+                ok = (gaps >= 1e-2 * mu_n[:, None]).all(dim=1)
+                alpha = torch.where(ok, alpha, 0.8 * alpha)
 
         x_n = x + alpha[:, None] * dx
         s_n = s + alpha[:, None] * ds

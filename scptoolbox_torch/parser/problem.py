@@ -1,7 +1,9 @@
 """Trajectory problem definition: a dataclass of pure PyTorch functions.
 
 Counterpart of `scptoolbox_tpu/parser/problem.py` (`bind_consts` :49, the
-cone constructors :65-116, `TrajectoryProblem` :231, `affine_blocks` /
+cone constructors :65-116 with `exp_cone` :111, `GuSTORunningCost` :127,
+`_taylor1` :163, `make_gusto_running_cost` :179, `TrajectoryProblem` :231
+with its `gusto_cost` / `force_hard` fields :294-298, `affine_blocks` /
 `quadratic_form` :341-393). Constraints are functions returning cone-tagged
 residual blocks (`ConeCon`); affine structure is extracted with
 `torch.func.jacfwd` at the reference point (exact for the affine-in-decision
@@ -23,7 +25,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd
+from torch.func import grad, grad_and_value, hessian, jacfwd
 
 
 def wants_consts(fn: Optional[Callable]) -> bool:
@@ -52,7 +54,7 @@ class ConeKind(enum.Enum):
     L1 = "l1"          # v[0] >= ||v[1:]||_1   (lowered: aux slacks)
     LINF = "linf"      # v[0] >= max|v[1:]|    (lowered: linear rows)
     GEOM = "geom"      # not ported yet
-    EXP = "exp"        # not ported yet
+    EXP = "exp"        # (x, y, z): y > 0, y e^{x/y} <= z (native rows)
 
 
 class ConeCon(NamedTuple):
@@ -87,6 +89,11 @@ def linf(v) -> ConeCon:
     return ConeCon(ConeKind.LINF, _vec(v))
 
 
+def exp_cone(v) -> ConeCon:
+    """v = (x, y, z) in K_exp = cl{y > 0, y e^{x/y} <= z}."""
+    return ConeCon(ConeKind.EXP, _vec(v))
+
+
 class BoundingBox(NamedTuple):
     """Per-dimension (min, max) scaling advice (numpy arrays)."""
 
@@ -113,6 +120,79 @@ class Constants:
         return c
 
 
+@dataclasses.dataclass(frozen=True)
+class GuSTORunningCost:
+    """GuSTO's structured running cost (reference problem.jl:365-418)
+
+        Gamma(t, k, x, u, p) = u' S(t, k, p) u + ell(t, k, x, p)' u
+                               + g(t, k, x, p),
+
+    each term with a convexity flag. A `*_cvx=True` term is kept exact in
+    the convex subproblem (so it must be affine or convex quadratic in the
+    decision variables: S constant in p and PSD, ell constant in (x, p));
+    a `*_cvx=False` term is linearized about the reference there
+    (gusto.jl:570-707), while the true cost (J_aug, the ratio test) uses
+    its exact value. Callables may be None (term absent):
+    S(t, k, p[, consts]) -> (nu, nu); ell(t, k, x, p[, consts]) -> (nu,);
+    g(t, k, x, p[, consts]) -> scalar. solvers.gusto.GuSTO turns it into a
+    running cost with `make_gusto_running_cost`."""
+
+    S: Optional[Callable] = None
+    ell: Optional[Callable] = None
+    g: Optional[Callable] = None
+    S_cvx: bool = True
+    ell_cvx: bool = True
+    g_cvx: bool = True
+
+
+def _taylor1(scalar_fn: Callable) -> Callable:
+    """First-order wrapper: the value and gradient of `scalar_fn(d)` are
+    exact at every point, but its Hessian under torch.func is zero
+    (`detach` stops the tangents at d, as JAX's stop_gradient does), so
+    the template's quadratic expansion about the reference posts the
+    linearized term: value and gradient at the reference, no curvature."""
+
+    def wrapped(d):
+        d0 = d.detach()
+        g0, v0 = grad_and_value(scalar_fn)(d0)
+        return v0 + g0 @ (d - d0)
+
+    return wrapped
+
+
+def make_gusto_running_cost(spec: GuSTORunningCost, nx: int,
+                            nu: int) -> Callable:
+    """A `running_cost(t, k, x, u, p, consts=None)` from the structured
+    triple: its value is the exact Gamma everywhere, and the terms flagged
+    nonconvex are wrapped by _taylor1 so their Hessian vanishes."""
+    terms = (("S", spec.S, spec.S_cvx), ("ell", spec.ell, spec.ell_cvx),
+             ("g", spec.g, spec.g_cvx))
+
+    def running_cost(t, k, x, u, p, consts=None):
+        kw = {} if consts is None else {"consts": consts}
+
+        def term(name, fn):
+            def value(d):
+                xx, uu, pp = d[:nx], d[nx:nx + nu], d[nx + nu:]
+                args = (t, k, pp) if name == "S" else (t, k, xx, pp)
+                v = fn(*args, **kw) if wants_consts(fn) else fn(*args)
+                if name == "S":
+                    return uu @ v @ uu
+                return v @ uu if name == "ell" else v
+
+            return value
+
+        d = torch.cat([x, u, p])
+        total = torch.zeros((), dtype=d.dtype, device=d.device)
+        for name, fn, cvx in terms:
+            if fn is not None:
+                one = term(name, fn)
+                total = total + (one(d) if cvx else _taylor1(one)(d))
+        return total
+
+    return running_cost
+
+
 @dataclasses.dataclass
 class TrajectoryProblem:
     """Definition of a nonconvex trajectory optimization problem.
@@ -127,9 +207,11 @@ class TrajectoryProblem:
     path constraints `s(t, k, x, u, p) <= 0`, boundary conditions
     `gic(x, p)` / `gtc(x, p)` = 0, `integration_actions`, scaling advice
     `xrg/urg/prg`, `consts` bound into callbacks that declare it, a host
-    `callback(rec: IterationRecord) -> bool` that serial PTR calls after
-    every iteration (True vetoes stopping), and user progress-table columns
-    (`add_table_column`).
+    `callback(rec: IterationRecord) -> bool` that the serial solvers call
+    after every iteration (True vetoes stopping), user progress-table
+    columns (`add_table_column`), GuSTO's structured running cost
+    `gusto_cost` (used when `running_cost` is None) and `force_hard`, which
+    keeps X hard under GuSTO (otherwise relaxed with indicator variables).
     Callbacks receive tensors of the solver's dtype and device; constants
     they create must follow the dtype and device of their arguments.
     """
@@ -154,6 +236,8 @@ class TrajectoryProblem:
     urg: Optional[BoundingBox] = None
     prg: Optional[BoundingBox] = None
     callback: Optional[Callable] = None
+    gusto_cost: Optional[GuSTORunningCost] = None
+    force_hard: bool = False
     # (key, heading, format, fn(rec: IterationRecord) -> value), appended to
     # the serial solvers' verbose tables
     table_columns: list = dataclasses.field(default_factory=list)

@@ -1,7 +1,8 @@
 """Direct conic-program modeling layer: `ConicProgram` on the PyTorch IPM.
 
 Counterpart of `scptoolbox_tpu/parser/program.py:88` (the host C++
-`backend="native"` waits). Constraints are PyTorch functions of the
+`backend="native"` waits), exponential-cone constraints included (:300,
+:405). Constraints are PyTorch functions of the
 variable blocks (and parameters) returning lists of ConeCon, affine in the
 variables; costs are affine or convex quadratic. Their structure is
 extracted exactly by `torch.func.jacfwd` / `hessian`, and the program lowers
@@ -250,7 +251,7 @@ class ConicProgram:
                 if po.kind in (ConeKind.ZERO, ConeKind.NONPOS):
                     duals[nm] = sol.z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)]
-                elif po.kind == ConeKind.SOC:
+                elif po.kind in (ConeKind.SOC, ConeKind.EXP):
                     duals[nm] = sol.z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)].reshape(-1)
         return ProgramSolution(values=values, obj=sol.obj + const,

@@ -5,7 +5,8 @@ Counterpart of `scptoolbox_tpu/solvers/structure.py` (`resolve_kkt` :31,
 `build_staged_builder` :114). The port carries the normal-equations block
 sweep (`ops/block_kkt.py`, the float64 auto choice for n >= 600 and what
 `structured_kkt=True` forces), the staged cyclic-reduction methods
-("staged_cr", "staged_crpl") and the dense ones ("schur", "lu"). The other
+("staged_cr", "staged_crpl") and the dense ones ("schur", "lu", and
+"qrchol", the null-space QR-Cholesky KKT of ops/ipm.py). The other
 staged variants are not ported yet: asking for them raises
 NotImplementedError rather than silently running a different method.
 """
@@ -28,14 +29,13 @@ _LATER = {
     "staged_lu": "the StagedLU/StagedQR/StagedCRQD slice",
     "staged_qr": "the StagedLU/StagedQR/StagedCRQD slice",
     "staged_crqd": "the StagedLU/StagedQR/StagedCRQD slice",
-    "qrchol": "a later slice (_QRCholKKT)",
 }
 
 
 def resolve_kkt(tmpl, probe, kkt_method, structured_kkt):
     """(effective kkt_method, kkt_builder) for a solver's request:
-      * an explicit staged method is probed here; "schur"/"lu" pass
-        through to ipm.solve;
+      * an explicit staged method is probed here; "schur", "lu" and
+        "qrchol" pass through to ipm.solve;
       * auto, n >= 600, float32: "staged_cr";
       * auto, n >= 600, float64, or structured_kkt=True: the block sweep
         (build_kkt_builder; the dense Schur KKT where the probe fails);

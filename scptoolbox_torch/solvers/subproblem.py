@@ -2,13 +2,15 @@
 (A, b, c) assembly for the IPM, batched over scenarios.
 
 Counterpart of `scptoolbox_tpu/solvers/subproblem.py:33-197` (`VarLayout`,
-`RowPlan`, `Assembler`). The structure (row/column indices) is static numpy;
-the values are tensors with a leading scenario dimension B.
+`RowPlan` with its exp groups :95 and their place in `freeze` :119-127,
+`Assembler` with `res_exp` :186). The structure (row/column indices) is
+static numpy; the values are tensors with a leading scenario dimension B.
 
 Sign/lowering conventions (residual v affine in the decision d):
     ZERO    v  = 0   ->  A = J,  b = -v0,  zero-cone rows
     NONPOS  v <= 0   ->  A = J,  b = -v0,  nonneg slack rows (s = -v)
     SOC     v in SOC ->  A = -J, b =  v0,  SOC slack block  (s =  v)
+    EXP     v in EXP ->  A = -J, b =  v0,  exp slack block  (s =  v)
 """
 
 from __future__ import annotations
@@ -51,12 +53,13 @@ class VarLayout:
 
 class RowPlan:
     """Reserve constraint rows grouped by cone kind; freeze() orders them
-    [zero | nonneg | soc...] to match the ConeSpec layout."""
+    [zero | nonneg | soc... | exp...] to match the ConeSpec layout."""
 
     def __init__(self):
         self._zero: List[Tuple[str, int]] = []
         self._nonneg: List[Tuple[str, int]] = []
         self._soc: List[Tuple[str, int, int]] = []
+        self._exp: List[Tuple[str, int]] = []
         self._frozen = False
         self._rows: Dict[str, np.ndarray] = {}
 
@@ -71,6 +74,11 @@ class RowPlan:
     def soc(self, name: str, count: int, dim: int) -> None:
         assert not self._frozen
         self._soc.append((name, int(count), int(dim)))
+
+    def exp(self, name: str, count: int) -> None:
+        """`count` exponential-cone blocks (x, y, z): y e^{x/y} <= z."""
+        assert not self._frozen
+        self._exp.append((name, int(count)))
 
     def freeze(self) -> ConeSpec:
         assert not self._frozen
@@ -90,11 +98,18 @@ class RowPlan:
                                 + np.arange(dim)[None, :])
             off += count * dim
             socs.extend([dim] * count)
+        nexp = 0
+        for name, count in self._exp:
+            self._rows[name] = (off + np.arange(count)[:, None] * 3
+                                + np.arange(3)[None, :])
+            off += count * 3
+            nexp += count
         self.m = off
-        return ConeSpec(nz=nz, nl=nl, socs=tuple(socs))
+        return ConeSpec(nz=nz, nl=nl, socs=tuple(socs), nexp=nexp)
 
     def rows(self, name: str) -> np.ndarray:
-        """(nrows,) for zero/nonneg groups; (count, dim) for SOC groups."""
+        """(nrows,) for zero/nonneg groups; (count, dim) for SOC/EXP
+        groups."""
         return self._rows[name]
 
 
@@ -153,6 +168,9 @@ class Assembler:
     def res_soc(self, rows, cols, J, v0) -> None:
         self.add_A(rows, cols, -J)
         self.add_b(rows, v0)
+
+    # membership s = v in K_exp: the SOC's sign convention
+    res_exp = res_soc
 
     def finish(self, S_full, c_full):
         """Apply the diagonal decision scaling d = S d_hat + c and return

@@ -2,12 +2,15 @@
 the outer SCP loops.
 
 Counterpart of `scptoolbox_tpu/solvers/template.py` (`_perturb_consts` :49,
-`BlockPoster` :81, `post_quadratic_epigraphs` :245, `SCPTemplate` :313 with
-`assemble_core` :572). The structure (variable blocks, row counts, cone
-spec) is probed once from the problem functions; `assemble_core` then posts
-the rows of a whole batch of scenarios at once: every per-node callback is
-mapped over (scenario x node) with `torch.func.vmap`, and its Jacobians come
-from `torch.func.jacfwd`.
+`BlockPoster` :81 with its EXP kind :149-153 / :172-173,
+`post_quadratic_epigraphs` :245, `SCPTemplate` :313 with GuSTO's soft state
+set (`soft_X`, the indicator layout :401-450) and `vs_nonneg` (:322-332,
+:399-401), `assemble_core` :572 with `post_sets_soft` :650-688 and the
+`vs_nn` rows :719-722, and `X_indicators` :835-877). The structure
+(variable blocks, row counts, cone spec) is probed once from the problem
+functions; `assemble_core` then posts the rows of a whole batch of
+scenarios at once: every per-node callback is mapped over (scenario x node)
+with `torch.func.vmap`, and its Jacobians come from `torch.func.jacfwd`.
 
 Decision variables live in physical units during assembly; the diagonal
 scaling d = S d_hat + c is applied by `Assembler.finish`.
@@ -64,7 +67,8 @@ class BlockPoster:
     """Plans rows (and auxiliary variables) for `count` copies of one affine
     cone block `v in K` of dimension `dim`, then posts the coefficients.
     Lowerings: L1 v[0] >= ||v[1:]||_1 via aux w with +-v[1:] <= w,
-    sum(w) <= v[0]; LINF v[0] >= max|v[1:]| via +-v[1:] <= v[0]."""
+    sum(w) <= v[0]; LINF v[0] >= max|v[1:]| via +-v[1:] <= v[0]. EXP
+    blocks (3-dim) post native exponential-cone rows."""
 
     def __init__(self, name: str, kind: ConeKind, dim: int, count: int,
                  layout: VarLayout, plan: RowPlan):
@@ -86,6 +90,9 @@ class BlockPoster:
         elif kind == ConeKind.LINF:
             plan.nonneg(name + "_lo", count * (dim - 1))
             plan.nonneg(name + "_hi", count * (dim - 1))
+        elif kind == ConeKind.EXP:
+            assert dim == 3, f"EXP cone blocks are 3-dim, got {dim}"
+            plan.exp(name, count)
         else:
             raise NotImplementedError(
                 f"cone kind {kind} is not ported yet")
@@ -102,6 +109,8 @@ class BlockPoster:
             asm.add_b(rows, -v0)
         elif kind == ConeKind.SOC:
             asm.res_soc(plan.rows(name), cols, J, v0)
+        elif kind == ConeKind.EXP:
+            asm.res_exp(plan.rows(name), cols, J, v0)
         elif kind == ConeKind.L1:
             aux = layout.idx(name + "_aux")
             d1 = dim - 1
@@ -182,12 +191,18 @@ def _stack_residuals(fn, *args):
 
 class SCPTemplate:
     """Static subproblem structure + batched core assembly for one
-    TrajectoryProblem at grid size N, in one dtype on one device."""
+    TrajectoryProblem at grid size N, in one dtype on one device.
+    soft_X (GuSTO) relaxes the state set X with indicator variables;
+    vs_nonneg=False drops the vs >= 0 rows, so that vs tracks the raw
+    linearized s (GuSTO's softplus penalty)."""
 
     def __init__(self, pbm: TrajectoryProblem, N: int, t_grid: np.ndarray, *,
                  dtype, device, relax_dynamics: bool = True,
-                 relax_bcs: bool = True):
+                 relax_bcs: bool = True, soft_X: bool = False,
+                 vs_nonneg: bool = True):
         self.pbm = pbm
+        self.soft_X = bool(soft_X) and pbm.X is not None
+        self.vs_nonneg = bool(vs_nonneg)
         self.N = int(N)
         self.t_np = np.asarray(t_grid, dtype=np.float64)
         self.w_trapz = trapezoid_weights(self.t_np)
@@ -248,9 +263,40 @@ class SCPTemplate:
         if ns:
             lay.add("vs", N, ns)
             plan.nonneg("ncvx", N * ns)
-            plan.nonneg("vs_nn", N * ns)
-        self._X_posters = [BlockPoster(f"X{i}", k, d, N, lay, plan)
-                           for i, (k, d) in enumerate(zip(Xk, Xd))]
+            if self.vs_nonneg:
+                plan.nonneg("vs_nn", N * ns)
+        if not self.soft_X:
+            self._X_posters = [BlockPoster(f"X{i}", k, d, N, lay, plan)
+                               for i, (k, d) in enumerate(zip(Xk, Xd))]
+        else:
+            # per-cone indicator variables q, q <= 0 iff the residual is in
+            # its cone (reference problem.jl:686-807): ZERO / NONPOS get a
+            # vector q (z - q <= 0, plus -z - q <= 0 for ZERO); the norm
+            # cones a scalar q shifting the epigraph head ((t + q, x) in K);
+            # EXP a scalar on the third entry ((x, y, w + q) in K_exp)
+            self._X_posters = []
+            self.n_qX = 0   # indicator slots per node
+            for i, (k, d) in enumerate(zip(Xk, Xd)):
+                if k == ConeKind.NONPOS:
+                    lay.add(f"qX{i}", N, d)
+                    posters = (BlockPoster(f"X{i}", ConeKind.NONPOS, d, N,
+                                           lay, plan),)
+                    self.n_qX += d
+                elif k == ConeKind.ZERO:
+                    lay.add(f"qX{i}", N, d)
+                    posters = tuple(BlockPoster(f"X{i}{h}", ConeKind.NONPOS,
+                                                d, N, lay, plan)
+                                    for h in "ab")
+                    self.n_qX += d
+                elif k in (ConeKind.SOC, ConeKind.L1, ConeKind.LINF,
+                           ConeKind.EXP):
+                    lay.add(f"qX{i}", N)
+                    posters = (BlockPoster(f"X{i}", k, d, N, lay, plan),)
+                    self.n_qX += 1
+                else:
+                    raise NotImplementedError(
+                        f"soft state-set relaxation for cone {k}")
+                self._X_posters.append(posters)
         self._U_posters = [BlockPoster(f"U{i}", k, d, N, lay, plan)
                            for i, (k, d) in enumerate(zip(Uk, Ud))]
 
@@ -410,9 +456,7 @@ class SCPTemplate:
         asm.add_b(rows, dltv.r)
 
         # ---- convex state/input sets ----
-        def post_sets(fn, posters, z_ref, z_idx):
-            if not posters:
-                return
+        def affine_sets(fn, z_ref, z_idx):
             nzz = z_ref.shape[2]
             z_flat = z_ref.reshape(Bn * N, nzz)
 
@@ -428,14 +472,52 @@ class SCPTemplate:
             J, v0 = nodes(J), nodes(v0)
             cols = (np.concatenate([z_idx, np.broadcast_to(p_idx, (N, npp))],
                                    axis=1) if npp > 0 else z_idx)
+            return cols, J, v0
+
+        def post_sets(fn, posters, z_ref, z_idx):
+            if not posters:
+                return
+            cols, J, v0 = affine_sets(fn, z_ref, z_idx)
             off = 0
             for po in posters:
                 po.post(asm, plan, lay, cols, J[..., off:off + po.dim, :],
                         v0[..., off:off + po.dim])
                 off += po.dim
 
+        def post_sets_soft(fn, z_ref, z_idx):
+            """The state set with its indicator columns (reference
+            problem.jl:706-807)."""
+            cols, J, v0 = affine_sets(fn, z_ref, z_idx)
+            off = 0
+            for i, (kind, d) in enumerate(zip(self.struct.X_kinds,
+                                              self.struct.X_dims)):
+                cols_q = np.concatenate(
+                    [cols, lay.idx(f"qX{i}").reshape(N, -1)], axis=1)
+                Ji = J[..., off:off + d, :]
+                v0i = v0[..., off:off + d]
+                if kind in (ConeKind.NONPOS, ConeKind.ZERO):
+                    eye = (-torch.eye(d, dtype=dt, device=dev)).expand(
+                        Bn, N, d, d)
+                    po = self._X_posters[i]
+                    po[0].post(asm, plan, lay, cols_q,
+                               torch.cat([Ji, eye], -1), v0i)
+                    if kind == ConeKind.ZERO:
+                        po[1].post(asm, plan, lay, cols_q,
+                                   torch.cat([-Ji, eye], -1), -v0i)
+                else:
+                    # the indicator shifts the head (SOC / L1 / LINF) or
+                    # the third entry (EXP)
+                    e = torch.zeros(Bn, N, d, 1, dtype=dt, device=dev)
+                    e[:, :, 2 if kind == ConeKind.EXP else 0, 0] = 1.0
+                    self._X_posters[i][0].post(
+                        asm, plan, lay, cols_q, torch.cat([Ji, e], -1), v0i)
+                off += d
+
         if pbm.X:
-            post_sets(X_fn, self._X_posters, ref_x, x_idx)
+            if self.soft_X:
+                post_sets_soft(X_fn, ref_x, x_idx)
+            else:
+                post_sets(X_fn, self._X_posters, ref_x, x_idx)
         if pbm.U:
             post_sets(U_fn, self._U_posters, ref_u, u_idx)
 
@@ -460,8 +542,9 @@ class SCPTemplate:
             if npp > 0:
                 v0 = v0 - (G @ p_flat[:, :, None])[..., 0]
             asm.add_b(rows, -nodes(v0))
-            asm.add_A(plan.rows("vs_nn"), vs_idx.reshape(-1),
-                      -torch.eye(N * ns, dtype=dt, device=dev))
+            if self.vs_nonneg:
+                asm.add_A(plan.rows("vs_nn"), vs_idx.reshape(-1),
+                          -torch.eye(N * ns, dtype=dt, device=dev))
 
         # ---- boundary conditions (linearized, relaxed) ----
         def post_bc(g_fn, x_node, x_cols, name, vname):
@@ -569,6 +652,47 @@ class SCPTemplate:
                     c0[:, None], d0[:, None])
                 asm.add_c(lay.idx("t_term").reshape(1),
                           torch.ones(1, dtype=dt, device=dev))
+
+    def X_indicators(self, x, p, consts=None):
+        """Numerical indicator values of the soft state set at the nodes of
+        x (B, N, nx), p (B, np) -> (B, N, n_qX), one per indicator variable;
+        q <= 0 iff the residual lies in its cone (reference cone.jl:275-292:
+        v for NONPOS, |v| for ZERO, ||v[1:]|| - v[0] for the norm cones,
+        y e^{x/y} - w for EXP, guarded for y <= 0)."""
+        assert self.soft_X
+        pbm = self.pbm
+        X_fn = bind_consts(pbm.X, pbm.consts if consts is None else consts)
+        Bn = x.shape[0]
+        t_flat, k_flat = self._nodes(Bn)
+
+        def per_node(t, k, xx, pp):
+            parts = []
+            for c in X_fn(t, k, xx, pp):
+                v = c.v.reshape(-1)
+                if c.kind == ConeKind.NONPOS:
+                    parts.append(v)
+                elif c.kind == ConeKind.ZERO:
+                    parts.append(torch.abs(v))
+                elif c.kind == ConeKind.SOC:
+                    parts.append((torch.linalg.vector_norm(v[1:])
+                                  - v[0])[None])
+                elif c.kind == ConeKind.L1:
+                    parts.append((torch.sum(torch.abs(v[1:])) - v[0])[None])
+                elif c.kind == ConeKind.LINF:
+                    parts.append((torch.amax(torch.abs(v[1:])) - v[0])[None])
+                elif c.kind == ConeKind.EXP:
+                    xw, yw, ww = v[0], v[1], v[2]
+                    ysafe = torch.where(yw > 0, yw, torch.ones_like(yw))
+                    parts.append(torch.where(
+                        yw > 0, yw * torch.exp(xw / ysafe) - ww,
+                        torch.maximum(-ww, -yw))[None])
+                else:
+                    raise NotImplementedError(c.kind)
+            return torch.cat(parts)
+
+        q = vmap(per_node)(t_flat, k_flat, x.reshape(Bn * self.N, -1),
+                           p.repeat_interleave(self.N, dim=0))
+        return q.reshape(Bn, self.N, -1)
 
     def original_cost(self, x, u, p, consts=None):
         """J_orig = phi(xf, p) + trapz(Gamma) for x (B, N, nx), u (B, N, nu),

@@ -62,9 +62,13 @@ def host_times(root):
 def phase_walls(root):
     """Walls and costs of chip_smoke.py --phases oscillator,lcvx in root."""
     t0 = time.time()
+    # one phase after another, each wall alone (trees that share the
+    # phases over worker processes take --workers)
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        alone = ["--workers", "1"] if "--workers" in f.read() else []
     r = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
-                        "oscillator,lcvx"], cwd=root, capture_output=True,
-                       text=True)
+                        "oscillator,lcvx"] + alone, cwd=root,
+                       capture_output=True, text=True)
     recs = {}
     for line in r.stdout.splitlines():
         if line.startswith("[oscillator] {"):

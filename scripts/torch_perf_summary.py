@@ -30,6 +30,13 @@ ABBR = {"starship": "SS", "starship_f64": "SS64",
         "freeflyer_scvx_projection": "FF proj",
         "freeflyer_scvx_setup": "FF set-up",
         "starship_scvx_projection": "SSc proj",
+        "quadrotor_gusto": "G", "quadrotor_gusto_softplus": "Gsp",
+        "quadrotor_gusto_qrchol": "Gqr", "freeflyer_gusto_step": "FFg",
+        "quadrotor_gusto_batched": "Gb",
+        "quadrotor_gusto_projection": "G proj",
+        "quadrotor_gusto_softplus_projection": "Gsp proj",
+        "quadrotor_gusto_qrchol_projection": "Gqr proj",
+        "freeflyer_gusto_step_setup": "FFg set-up",
         "kernels": "checks"}
 ORDER = ("lu_factor", "lu_solve", "cholesky", "solve_lower", "solve_lower_t",
          "gj_inverse")

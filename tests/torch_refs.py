@@ -16,9 +16,11 @@ import torch
 
 from scptoolbox_torch import interop
 from scptoolbox_torch.ops.discretize import DiscretizationType as TDisc
+from scptoolbox_torch.solvers import gusto as tgusto
 from scptoolbox_torch.solvers import ptr as tptr
 from scptoolbox_torch.solvers import scvx as tscvx
 from scptoolbox_tpu.ops.discretize import DiscretizationType as JDisc
+from scptoolbox_tpu.solvers import gusto as jgusto
 from scptoolbox_tpu.solvers import ptr as jptr
 from scptoolbox_tpu.solvers import scvx as jscvx
 
@@ -58,6 +60,26 @@ QUAD_PARS = dict(N=8, Nsub=5, lam=30.0, iter_max=5, project_guess=False)
 # region (its tr_w / tr_geom rows)
 FF_PARS = dict(N=6, Nsub=5, lam=1e3, iter_max=30, eta_lb=1e-6, eps_abs=1e-5,
                eps_rel=1e-4, feas_tol=1e-3, q_tr=4.0)
+
+
+# tests/test_quadrotor.py:30-33 (the quadrotor_gusto pin) cut to N=8,
+# Nsub=5 and four iterations, on the guess as it is; softplus adds :69-70
+GUSTO_PARS = dict(N=8, Nsub=5, iter_max=4, project_guess=False)
+GUSTO_SOFTPLUS = dict(pen="softplus", hom=500.0, lam_init=1e3)
+
+
+@functools.cache
+def quadrotor_gusto_pair(pen="quad"):
+    """(JAX GuSTO, port GuSTO) on the quadrotor at GUSTO_PARS with the quad
+    or the softplus penalty, the port's on the CPU in float64 and built
+    from the JAX model parameters."""
+    mdl = jquad.QuadrotorParameters()
+    pars = dict(GUSTO_PARS, **(GUSTO_SOFTPLUS if pen == "softplus" else {}))
+    T = tgusto.GuSTO(tquad.quadrotor(interop.model_parameters(
+        tquad.QuadrotorParameters, dataclasses.asdict(mdl))),
+        tgusto.GuSTOParameters(**pars), device="cpu")
+    return jgusto.GuSTO(jquad.quadrotor(mdl),
+                        jgusto.GuSTOParameters(**pars)), T
 
 
 @functools.cache
