@@ -55,6 +55,31 @@ non-zero; nothing is caught and passed over):
   quadrotor_gusto_batched: GuSTO.solve_batched at B=8 on the quadrotor, all
      SOLVED and feasible, its unscaled scenario repeating the serial solve
      (the same iterations, eta and lambda traces);
+  starship_f64_staged_lu, starship_f64_staged_qr: the starship_f64 run on
+     "staged_lu" (the forward stage sweep on the LU kernels: all feasible,
+     every cost within 4% of the pin, the part of the JAX package's own
+     record for this run that rounding does not move; statuses and the
+     stopping rule's quantities recorded) and on "staged_qr" (the band-QR
+     sweep, R_k on
+     solve_lower_t, the arrow on the LU kernels: 4/4 SOLVED within the
+     pin's 1e-3);
+  double_integrator_staged: bench.py's double integrator (B=128, float32)
+     on "staged_lu" and on "staged_qr": every scenario feasible, the SOLVED
+     counts recorded;
+  starship_crqd_kkt: one float32 Starship subproblem batch (B=32): a
+     StagedCRQD factor and FGMRES solve at a random interior W beside
+     StagedCRPL's, each relative KKT residual <= 1e-4, one IPM solve on
+     CRQD (status and gap recorded), and the cholesky kernel on indefinite
+     blocks against the plain version's NaN;
+  quadrotor_gusto_softplus_staged: the softplus quadrotor (N=30, 180 exp
+     blocks) in float64 on "staged_cr", "staged_crpl" and "staged_qr"
+     (their 694-wide arrow on lu_factor's grid design and lu_solve's rows
+     design), each SOLVED within 1e-3 of the JAX package's softplus cost;
+     and in float32
+     on the auto policy's "staged_cr" (status and cost recorded);
+  conic_parser: GEOM programs (n = 2, 3, 4, 5, 7 and AM-GM) and the four
+     closed-form KKT sensitivities (parser/variation.py) in float64 on the
+     card, held to their closed forms;
   kernels: every kernel against its plain PyTorch version at every
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
@@ -292,10 +317,16 @@ def _check(torch, kernel, run, plain, tol, what):
     return err
 
 
-def _design(torch, ck, kernel, dt, nb, n, K):
-    """The design a Cholesky-ladder launcher takes at (nb, n, K), as the
-    library's chol_design export reports it (nothing is launched); None for
-    the LU and Gauss-Jordan kernels."""
+def _design(torch, lk, ck, kernel, dt, nb, n, K):
+    """The design a launcher takes at (nb, n, K), as the libraries'
+    chol_design and lu_design exports report it (nothing is launched);
+    None for the Gauss-Jordan kernel."""
+    if kernel in ("lu_factor", "lu_solve"):
+        which = int(kernel == "lu_solve")
+        v = lk.LIB.load().lu_design(which, n, 8 if dt == torch.float64
+                                    else 4)
+        assert v >= 0, (kernel, n, v)
+        return (("warp", "panels", "grid"), ("panels", "rows"))[which][v]
     which = {"cholesky": 0, "solve_lower": 1, "solve_lower_t": 2}.get(kernel)
     if which is None:
         return None
@@ -361,7 +392,7 @@ def phase_kernels(torch, lk, ck, gk, shapes_by_path):
                         if kernel == "gj_inverse" else sum(nbs.values()))
             row = dict(path=path, kernel=kernel, dtype=dtname, n=n, K=K,
                        nb_checked=sorted({min(nbs), max(nbs)}),
-                       design={b: _design(torch, ck, kernel, dt, b, n, K)
+                       design={b: _design(torch, lk, ck, kernel, dt, b, n, K)
                                for b in sorted({min(nbs), max(nbs)})},
                        launches=launches, max_abs_err=err,
                        kernel_ms=_time_ms(torch, run, 20),
@@ -455,13 +486,17 @@ def _block_ipm_loops(solver, launches):
 
 
 def _run_starship(torch, lk, ck, tag, dtype, B, n_iters, cost_tol,
-                  guess_device="cuda", kkt_method="staged_crpl"):
+                  guess_device="cuda", kkt_method="staged_crpl",
+                  all_solved=False, status_gated=True):
     """Batched Starship PTR from B guesses spread by 2% in x: every
-    scenario dynamically feasible, every SOLVED cost within cost_tol of the
-    float64 pin, the path's kernels launched on the run (staged CR: both LU
-    kernels; the block sweep: the Cholesky ladder's, one factor per IPM
-    loop). The set-up (the guess program, on the card on the Cholesky
-    ladder) is recorded apart."""
+    scenario dynamically feasible (and SOLVED where all_solved), every
+    SOLVED cost within cost_tol of the float64 pin (where not
+    status_gated: no SOLVED needed, and every cost within it), the path's
+    kernels
+    launched on the run (the staged sweeps: both LU kernels, and for
+    "staged_qr" solve_lower_t, its back-substitution; the block sweep: the
+    Cholesky ladder's, one factor per IPM loop). The set-up (the guess
+    program, on the card on the Cholesky ladder) is recorded apart."""
     from scptoolbox_torch.config import SCPStatus
 
     solver, setup_s, setup_launches, setup_shapes = _drive(
@@ -496,22 +531,36 @@ def _run_starship(torch, lk, ck, tag, dtype, B, n_iters, cost_tol,
                solves_per_s=B / wall, solved=int(solved.sum()),
                feasible=int(feas.sum()),
                iters=out["iters"].cpu().numpy().tolist(),
+               status=status.tolist(), cost=cost.tolist(),
                scp_steps=len(out["traces"]), ipm_loops=ipm_loops,
                cost_min=float(cost.min()), cost_max=float(cost.max()),
+               cost_max_rel_dev=float(np.max(np.abs(cost / STARSHIP_PIN
+                                                    - 1.0))),
                cost_solved_max_rel_dev=float(
                    np.max(np.abs(cost[solved] / STARSHIP_PIN - 1.0))
                    if solved.any() else float("nan")),
                launches=launches,
                launches_per_ipm_loop={k: v / ipm_loops
                                       for k, v in launches.items()})
+    if B <= 4:
+        # the stopping rule's quantities, an iteration a row, a scenario a
+        # column (NaN once a scenario has stopped)
+        rec["trace"] = {k: torch.stack([t[k] for t in out["traces"]]).to(
+            torch.float64).cpu().numpy().tolist()
+            for k in ("deviation", "improv_rel", "feas")}
     if block:
         rec.update(kkt="block", n=solver.tmpl.n, ns=st.ns, ng=st.ng,
                    nz=solver.spec.nz)
     log(f"[{tag}] " + json.dumps(rec))
     assert feas.all(), f"only {int(feas.sum())}/{B} scenarios feasible"
-    assert solved.any(), "no scenario SOLVED"
+    assert solved.any() or not status_gated, "no scenario SOLVED"
+    assert solved.all() or not all_solved, f"only {int(solved.sum())}/{B} " \
+        "scenarios SOLVED"
     assert np.all(np.isfinite(cost)), "non-finite cost"
-    assert rec["cost_solved_max_rel_dev"] <= cost_tol, rec
+    assert rec["cost_solved_max_rel_dev"] <= cost_tol or not solved.any(), rec
+    assert status_gated or rec["cost_max_rel_dev"] <= cost_tol, rec
+    if kkt_method == "staged_qr":
+        assert launches["solve_lower_t"] > 0, launches
     if block:
         assert _ladder_launched(launches), launches
         assert _block_ipm_loops(solver, launches) == ipm_loops, (
@@ -546,6 +595,36 @@ def phase_starship_f64_block(torch, lk, ck):
     (the path its Starship pin was made on)."""
     return _run_starship(torch, lk, ck, "starship_f64_block", torch.float64,
                          4, 15, 1e-3, guess_device="cpu", kkt_method=None)
+
+
+def phase_starship_f64_staged_lu(torch, lk, ck):
+    """The starship_f64 run on kkt_method="staged_lu": the forward stage
+    sweep, its 31 stage LUs (158²), their E_k/F_k solves (K = s + nb = 303)
+    and the border LU (145²) on the LU kernels. The LU sweep's unpivoted
+    Schur chain loses digits on this template, in both packages: their
+    first subproblems' steps (trace "deviation", iteration 0) miss the
+    accurate sweeps' by up to 17% in different directions, and a 1e-12
+    nudge of the guesses moves the JAX package's own by up to 9%
+    (tests/staged_reference.py ptr_lu: all four FAILED at the 15-iteration
+    limit; ptr_lu_nudged: two SOLVED, two FAILED; all feasible, costs
+    1.7-3.1% below the pin). Which scenarios meet the stopping rule
+    (|improv_rel| <= 1e-4 at a feasible iterate, while it wanders over
+    1e-5..1e-2) is then chance. So the gate is the record's robust part:
+    every scenario feasible and every cost within 4% of the pin; statuses
+    and the stopping rule's quantities are recorded."""
+    return _run_starship(torch, lk, ck, "starship_f64_staged_lu",
+                         torch.float64, 4, 15, 0.04, guess_device="cpu",
+                         kkt_method="staged_lu", status_gated=False)
+
+
+def phase_starship_f64_staged_qr(torch, lk, ck):
+    """The starship_f64 run on kkt_method="staged_qr": one QR a stage of the
+    (316, 158) band stack (torch.linalg.qr), the back-substitution with R_k
+    on solve_lower_t, the arrow's Schur complement on the LU kernels; 4/4
+    SOLVED within the pin's 1e-3."""
+    return _run_starship(torch, lk, ck, "starship_f64_staged_qr",
+                         torch.float64, 4, 15, 1e-3, guess_device="cpu",
+                         kkt_method="staged_qr", all_solved=True)
 
 
 DI_PARS = dict(N=31, Nsub=15, wvc=1e3, wtr=5e-3, ipm_tol=3e-6,
@@ -589,6 +668,26 @@ def phase_double_integrator_crpl(torch, lk, ck):
         torch, lk, ck, "double_integrator_crpl", "staged_crpl")
     assert solver.kkt_builder is not None, "staged probe failed"
     assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, launches
+    return rec, shapes
+
+
+def phase_double_integrator_staged(torch, lk, ck):
+    """bench.py's double integrator (B=128, float32) on "staged_lu", then on
+    "staged_qr": every scenario feasible, the SOLVED counts recorded (beside
+    double_integrator_crpl's), the sweeps' kernels launched."""
+    rec, shapes = {}, {}
+    for method in ("staged_lu", "staged_qr"):
+        # the record's sub-key and the shapes' path agree (_path_launches)
+        sub = method.split("_")[1]
+        r, shp, solver, launches = _run_double_integrator(
+            torch, lk, ck, f"double_integrator_staged_{sub}", method)
+        assert solver.kkt_builder is not None, "staged probe failed"
+        assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0, \
+            launches
+        if method == "staged_qr":
+            assert launches["solve_lower_t"] > 0, launches
+        rec[sub] = r
+        shapes.update(shp)
     return rec, shapes
 
 
@@ -986,28 +1085,29 @@ GUSTO_PARS = {
                                    kkt_method="qrchol")}
 
 
-def _gusto_setup(torch, lk, ck, tag, pbm, pars, project=True):
+def _gusto_setup(torch, lk, ck, tag, pbm, pars, project=True, dtype=None):
     """(solver, record, shapes, projected guess or None) of a GuSTO phase's
-    set-up, float64 on the card: the constructor, then the guess projection
-    on its own, so that its ladder launches stay out of the loop's count."""
+    set-up, float64 on the card unless `dtype` says otherwise: the
+    constructor, then the guess projection on its own, so that its ladder
+    launches stay out of the loop's count."""
     from scptoolbox_torch.solvers import gusto
     from scptoolbox_torch.solvers.projection import project_convex
 
+    dtype = dtype or torch.float64
     solver, setup_s, setup_launches, setup_shapes = _drive(
         torch, lk, ck, lambda: gusto.GuSTO(pbm, gusto.GuSTOParameters(**pars),
-                                           dtype=torch.float64,
-                                           device="cuda"))
+                                           dtype=dtype, device="cuda"))
     rec = dict(kkt=_kkt_path(solver), n=solver.tmpl.n, m=solver.tmpl.m,
                nz=solver.spec.nz, nexp=solver.spec.nexp,
-               n_qX=solver.n_qX, dtype="float64", setup_s=setup_s,
-               setup_launches=setup_launches)
+               n_qX=solver.n_qX, dtype=str(dtype).split(".")[-1],
+               setup_s=setup_s, setup_launches=setup_launches)
     shapes = {f"{tag}_setup": setup_shapes}
     guess = None
     if project:
         guess, proj_s, proj_launches, shapes[f"{tag}_projection"] = _drive(
             torch, lk, ck, lambda: project_convex(
                 solver.pbm, solver.scaling, *solver._guess,
-                t_grid=solver.t_np, dtype=torch.float64, device="cuda"))
+                t_grid=solver.t_np, dtype=dtype, device="cuda"))
         rec["projection"] = dict(wall_s=proj_s, launches=proj_launches)
         assert _ladder_launched(proj_launches), proj_launches
     log(f"[{tag}] set-up {setup_s:.1f} s: " + json.dumps(rec))
@@ -1211,6 +1311,283 @@ def phase_quadrotor_gusto_batched(torch, lk, ck, B=8):
     return rec, shapes
 
 
+def _interior(torch, spec, B, gen, dtype):
+    """B strictly interior cone points (zero on the zero-cone rows)."""
+    v = torch.rand(B, spec.m, generator=gen, device="cuda",
+                   dtype=dtype) + 0.5
+    off = spec.nz + spec.nl
+    for d in spec.socs:
+        w = 0.2 * (torch.rand(B, d - 1, generator=gen, device="cuda",
+                              dtype=dtype) - 0.5)
+        v[:, off] = torch.linalg.vector_norm(w, dim=1) + 1.0
+        v[:, off + 1:off + d] = w
+        off += d
+    v[:, :spec.nz] = 0.0
+    return v
+
+
+def _indefinite_cholesky(torch, ck, n, nb, gen):
+    """cholesky on nb indefinite float32 blocks at n (the CRQD ladder's
+    failing rungs): the kernel raises nothing, and each block's factor is
+    non-finite, where the plain version's is, with the same non-finite
+    entries; the finite blocks' entries agree bit for bit."""
+    M = torch.randn(nb, n, n, generator=gen, device="cuda")
+    H = M @ M.mT + n * torch.eye(n, device="cuda")
+    H[: nb // 2] -= 1.5 * torch.linalg.eigvalsh(H[: nb // 2])[:, -1:, None] \
+        * torch.eye(n, device="cuda")
+    L, ref = ck.cholesky(H), ck.cholesky_plain(H)
+    torch.cuda.synchronize()
+    fin, fin_ref = torch.isfinite(L), torch.isfinite(ref)
+    assert torch.equal(fin, fin_ref), f"n={n}: non-finite entries differ"
+    bad = ~fin.all(dim=-1).all(dim=-1)
+    assert bad[: nb // 2].all() and not bad[nb // 2:].any(), bad
+    assert torch.equal(L[fin], ref[fin]), f"n={n}: finite entries differ"
+    return dict(n=n, nb=nb, non_finite_blocks=int(bad.sum()))
+
+
+def phase_starship_crqd_kkt(torch, lk, ck, B=32):
+    """One Starship float32 subproblem batch (B=32, at the spread guesses,
+    Ruiz-equilibrated as ipm.solve does): one StagedCRQD factor and FGMRES
+    solve at a random interior W beside StagedCRPL's on the same system,
+    each solve's relative KKT residual (against the unregularized
+    operator, per right-hand side) at most 1e-4; then one IPM solve of the
+    subproblems on CRQD, its status and gap recorded (the JAX package's own
+    record is a 1.6e-3 stall). The CRQD run launches the Cholesky ladder's
+    cholesky and solve_lower (its ridge ladder) and the LU kernels (the
+    arrow); the kernel's indefinite blocks are held to the plain version's
+    NaN."""
+    from scptoolbox_torch.ops import aug_kkt, ipm
+    from scptoolbox_torch.ops import cones as cn
+    from scptoolbox_torch.ops.ipm import _equilibrate, _w2_matvec
+
+    tag = "starship_crqd_kkt"
+    dt = torch.float32
+    solver = _starship_solver(torch, dt, 1)
+    st = solver.kkt_builder.structure
+    spec = solver.spec
+    bx, bu, bp = _scenario_batch(torch, solver, B, 0.02)
+    A, b, c, const = solver._assemble(bx, bu, bp,
+                                      solver._discretize(bx, bu, bp),
+                                      solver.consts)
+    R, D = _equilibrate(spec, A)
+    Aq = R[:, :, None] * A * D[:, None, :]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    W = cn.nt_scaling(spec, _interior(torch, spec, B, gen, dt),
+                      _interior(torch, spec, B, gen, dt))
+    mask = torch.as_tensor(spec.cone_mask(), dtype=dt, device="cuda")
+    n = Aq.shape[2]
+    rhs = torch.randn(B, n + Aq.shape[1], 2, generator=gen, device="cuda",
+                      dtype=dt)
+
+    def residual(sol):
+        r = rhs - torch.cat([Aq.mT @ sol[:, n:], Aq @ sol[:, :n]
+                             - _w2_matvec(spec, W, sol[:, n:], mask)], dim=1)
+        return (torch.linalg.vector_norm(r, dim=1)
+                / torch.linalg.vector_norm(rhs, dim=1)).max().item()
+
+    rec, shapes = dict(B=B, s=st.ns + st.rmax, ns=st.ns, rmax=st.rmax,
+                       ng=st.ng, mg=st.mg), {}
+    for name, cls in (("crqd", aug_kkt.StagedCRQD),
+                      ("crpl", aug_kkt.StagedCRPL)):
+        kkt = cls(spec, Aq, 1e-7, mask, st)
+        sol, wall, launches, shapes[f"{tag}_{name}"] = _drive(
+            torch, lk, ck, lambda: kkt.solve(kkt.factor(W), rhs))
+        rec[name] = dict(gmres_iters=kkt.gmres_iters, wall_s=wall,
+                         rel_residual=residual(sol), launches=launches)
+        log(f"[{tag}] {name} " + json.dumps(rec[name]))
+    builder = aug_kkt.make_staged_crqd_builder(st)
+    sol, wall, launches, shapes[tag] = _drive(
+        torch, lk, ck, lambda: ipm.solve_batched(
+            A, b, c, spec, tol=3e-6, tol_almost=1e-5, max_iter=60,
+            kkt_builder=builder))
+    rec["ipm"] = dict(wall_s=wall, status=sol.status.tolist(),
+                      iters=sol.iters.tolist(), gap=sol.gap.tolist(),
+                      objective=(sol.obj + const).tolist())
+    rec["launches"] = launches
+    rec["indefinite_cholesky"] = [
+        _indefinite_cholesky(torch, ck, k, 2 * B, gen)
+        for k in (st.rmax, st.ns)]
+    log(f"[{tag}] " + json.dumps({k: rec[k] for k in (
+        "ipm", "indefinite_cholesky")}))
+    for name in ("crqd", "crpl"):
+        assert rec[name]["rel_residual"] <= 1e-4, (name, rec[name])
+    crqd = rec["crqd"]["launches"]
+    assert crqd["cholesky"] > 0 and crqd["solve_lower"] > 0, crqd
+    assert crqd["lu_factor"] > 0 and crqd["lu_solve"] > 0, crqd
+    assert launches["cholesky"] > 0 and launches["lu_factor"] > 0, launches
+    return rec, shapes
+
+
+def phase_quadrotor_gusto_softplus_staged(torch, lk, ck):
+    """The quadrotor_gusto_softplus configuration (N=30, 180 exp blocks a
+    subproblem) on the staged sweeps, from the projected guess of a
+    float64 set-up: in float64 on explicit "staged_cr" (the library LU, as
+    the JAX package's takes XLA's), on "staged_crpl" (every LU on the LU
+    kernels, the template's 694-wide arrow Schur complement on lu_factor's
+    grid design and lu_solve's rows design, since a float64 block fits in
+    shared memory only up to 168) and on "staged_qr" (R_k on
+    solve_lower_t, the same arrow on the LU kernels): each SOLVED,
+    feasible, within 1e-3 of the JAX package's softplus cost; then in
+    float32 with
+    no kkt_method, where the auto policy takes "staged_cr" with a builder
+    (n = 752 >= 600): its status and cost deviation are recorded."""
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.models.quadrotor import quadrotor
+    from scptoolbox_torch.solvers.solution import SCPSolution
+
+    tag = "quadrotor_gusto_softplus_staged"
+    base = GUSTO_PARS["quadrotor_gusto_softplus"]
+    rec, shapes, warm = {}, {}, None
+    for name, kkt, dtype in (("staged_cr", "staged_cr", torch.float64),
+                             ("staged_crpl", "staged_crpl", torch.float64),
+                             ("staged_qr", "staged_qr", torch.float64),
+                             ("auto_f32", None, torch.float32)):
+        sub = f"{tag}_{name}"
+        solver, r, shp, guess = _gusto_setup(
+            torch, lk, ck, sub, quadrotor(), dict(base, kkt_method=kkt),
+            project=warm is None, dtype=dtype)
+        shapes.update(shp)
+        if warm is None:
+            x, u, p = (a.cpu().numpy() for a in guess)
+            warm = SCPSolution(status=SCPStatus.FAILED,
+                               algorithm="projection", iterations=0, xd=x,
+                               ud=u, p=p, cost=math.nan, t_grid=solver.t_np,
+                               feas=False)
+        st = solver.kkt_builder.structure
+        r.update(ng=st.ng, mg=st.mg, s=st.ns + st.rmax)
+        assert r["kkt"] == (kkt or "staged_cr"), (name, r)
+        assert (r["n"], r["nexp"]) == (752, 180), r
+        sol, wall, launches, shapes[sub] = _drive(
+            torch, lk, ck, lambda: solver.solve(warm=warm))
+        keep = _keep_out(torch, sol.xd)
+        r.update(wall_s=wall, status=str(sol.status),
+                 feasible=bool(sol.feas), iterations=sol.iterations,
+                 cost=sol.cost,
+                 cost_rel_dev_jax=abs(sol.cost / GUSTO_SOFTPLUS_JAX - 1.0),
+                 keep_out_min=keep, history=_gusto_history(sol),
+                 launches=launches)
+        log(f"[{tag}] {name} " + json.dumps(r))
+        rec[name] = r
+        if dtype == torch.float64:
+            assert sol.status == SCPStatus.SOLVED and sol.feas, (name, r)
+            assert r["cost_rel_dev_jax"] <= 1e-3, (name, r)
+            assert min(keep) >= 1.0 - 5e-3, (name, keep)
+        if kkt in ("staged_crpl", "staged_qr"):
+            arrow = r["ng"] + r["mg"]
+            assert arrow == 694, r
+            assert any(k[0] == "lu_factor" and k[3] == arrow
+                       for k in shapes[sub]), shapes[sub]
+            assert launches["lu_factor"] > 0 and launches["lu_solve"] > 0
+        if kkt == "staged_qr":
+            assert launches["solve_lower_t"] > 0, launches
+    return rec, shapes
+
+
+def phase_conic_parser(torch, lk, ck):
+    """The parser's GEOM programs (tests/test_cones.py:158-200: max t with
+    geomean(x) >= t at fixed x for n = 2, 3, 4, 5, 7, and AM-GM at n = 5)
+    and the four closed-form sensitivities of tests/test_variation.py, as
+    ConicPrograms in float64 on the card (the dense Schur KKT's Cholesky
+    ladder), held to their closed forms at those tests' tolerances."""
+    from scptoolbox_torch.parser.problem import geom, nonpos, soc, zero
+    from scptoolbox_torch.parser.program import ConicProgram
+    from scptoolbox_torch.parser.variation import variation
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    T = lambda a: torch.as_tensor(np.asarray(a), **f64)
+
+    def geom_program(n, xval):
+        prg = ConicProgram(**f64)
+        t, x = prg.variable("t"), prg.variable("x", n)
+        prg.add_constraint("fix", lambda xv: [zero(xv - T(xval))], (x,))
+        prg.add_constraint("gm", lambda tv, xv: [geom(torch.cat(
+            [tv.reshape(1), xv]))], (t, x))
+        prg.add_cost(lambda tv: -tv.sum(), (t,))
+        prg.build()
+        return prg
+
+    def am_gm(n=5):
+        prg = ConicProgram(**f64)
+        x = prg.variable("x", n)
+        prg.add_constraint("gm", lambda xv: [geom(torch.cat(
+            [T([1.0]), xv]))], (x,))
+        prg.add_cost(lambda xv: xv.sum(), (x,))
+        prg.build()
+        return prg
+
+    def bound(theta):
+        prg = ConicProgram(**f64)
+        x = prg.variable("x", 1)
+        th = prg.parameter("theta", theta)
+        prg.add_constraint("bound", lambda xv, t: [nonpos(t - xv)], (x, th))
+        prg.add_cost(lambda xv: ((xv - 2.0) ** 2).sum(), (x,))
+        prg.build()
+        return prg
+
+    c_ball, a_plane = np.asarray([3.0, -4.0]), np.asarray([1.0, 2.0, -1.0])
+
+    def ball():
+        prg = ConicProgram(**f64)
+        x = prg.variable("x", 2)
+        th = prg.parameter("theta", 2.0)
+        prg.add_constraint("ball", lambda xv, t: [soc(torch.cat(
+            [t.reshape(1), xv]))], (x, th))
+        prg.add_cost(lambda xv: (T(c_ball) * xv).sum(), (x,))
+        prg.build()
+        return prg
+
+    def plane():
+        prg = ConicProgram(**f64)
+        x = prg.variable("x", 3)
+        th = prg.parameter("theta", 4.0)
+        prg.add_constraint("plane", lambda xv, t: [zero(
+            ((T(a_plane) * xv).sum() - t).reshape(1))], (x, th))
+        prg.add_cost(lambda xv: (xv * xv).sum(), (x,))
+        prg.build()
+        return prg
+
+    def run():
+        out = {}
+        for n in (2, 3, 4, 5, 7):
+            xval = 0.5 + np.random.default_rng(n).random(n)
+            sol = geom_program(n, xval).solve()
+            out[f"geom_{n}"] = dict(
+                t=float(sol.values["t"]),
+                geomean=float(np.exp(np.mean(np.log(xval)))),
+                status=int(sol.status))
+        sol = am_gm().solve()
+        out["am_gm"] = dict(x=sol.values["x"].tolist(), obj=float(sol.obj),
+                            status=int(sol.status))
+        for name, build, theta, dx in (
+                ("active_bound", lambda: bound(3.0), 3.0, [1.0]),
+                ("inactive_bound", lambda: bound(1.0), 1.0, [0.0]),
+                ("soc_radius", ball, 2.0, -c_ball / 5.0),
+                ("equality_rhs", plane, 4.0, a_plane / 6.0)):
+            prg = build()
+            sol = prg.solve()
+            d = variation(prg, sol, {"theta": theta}).solve({"theta": 1.0})
+            out[name] = dict(x=sol.values["x"].tolist(),
+                             dx=d.dvalues["x"].tolist(), dx_closed=list(dx),
+                             status=int(d.status))
+        return out
+
+    out, wall, launches, shapes = _drive(torch, lk, ck, run)
+    rec = dict(out, wall_s=wall, launches=launches)
+    log("[conic_parser] " + json.dumps(rec))
+    for n in (2, 3, 4, 5, 7):
+        r = out[f"geom_{n}"]
+        assert abs(r["t"] / r["geomean"] - 1.0) <= 1e-6, r
+    assert np.allclose(out["am_gm"]["x"], 1.0, atol=1e-5), out["am_gm"]
+    assert abs(out["am_gm"]["obj"] / 5.0 - 1.0) <= 1e-6, out["am_gm"]
+    for name, tol in (("active_bound", 1e-4), ("inactive_bound", 1e-4),
+                      ("soc_radius", 1e-3), ("equality_rhs", 1e-4)):
+        assert np.allclose(out[name]["dx"], out[name]["dx_closed"],
+                           atol=tol), (name, out[name])
+    assert _ladder_launched(launches), launches
+    return rec, {"conic_parser": shapes}
+
+
 def phase_gmres(torch, lk, ck, B=4):
     """FGMRES depth of the staged CR KKT against IPM convergence on the
     first Starship subproblems of B spread guesses (float64 k=8, float32
@@ -1410,7 +1787,14 @@ PATHS = (("starship", phase_starship),
          ("quadrotor_gusto_softplus", phase_quadrotor_gusto_softplus),
          ("quadrotor_gusto_qrchol", phase_quadrotor_gusto_qrchol),
          ("freeflyer_gusto_step", phase_freeflyer_gusto_step),
-         ("quadrotor_gusto_batched", phase_quadrotor_gusto_batched))
+         ("quadrotor_gusto_batched", phase_quadrotor_gusto_batched),
+         ("starship_f64_staged_lu", phase_starship_f64_staged_lu),
+         ("starship_f64_staged_qr", phase_starship_f64_staged_qr),
+         ("double_integrator_staged", phase_double_integrator_staged),
+         ("starship_crqd_kkt", phase_starship_crqd_kkt),
+         ("quadrotor_gusto_softplus_staged",
+          phase_quadrotor_gusto_softplus_staged),
+         ("conic_parser", phase_conic_parser))
 OPT_IN_PATHS = (("rendezvous_full", phase_rendezvous_full),)
 DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
 
@@ -1427,7 +1811,11 @@ PHASE_S = {"starship": 161.7, "starship_f64": 51.8,
            "freeflyer_scvx": 119.7, "starship_scvx": 195.9,
            "quadrotor_scvx_batched": 47.4, "quadrotor_gusto": 17.7,
            "quadrotor_gusto_softplus": 26.4, "quadrotor_gusto_qrchol": 17.0,
-           "freeflyer_gusto_step": 4.8, "quadrotor_gusto_batched": 28.1}
+           "freeflyer_gusto_step": 4.8, "quadrotor_gusto_batched": 28.1,
+           # PR 11's phases: their walls side by side over three workers
+           "starship_f64_staged_lu": 105.0, "starship_f64_staged_qr": 90.0,
+           "double_integrator_staged": 48.6, "starship_crqd_kkt": 23.9,
+           "quadrotor_gusto_softplus_staged": 140.0, "conic_parser": 10.0}
 
 
 def _precise(torch):

@@ -17,7 +17,7 @@
 // columns) neither bytes nor flops: the factor is s dependent steps of
 // (argmax, swap, rank-1 update), the solve 2s dependent substitution steps.
 //
-// The factor has two designs, chosen by the launcher from s:
+// The factor has three designs, chosen by the launcher from s:
 // * s <= 32: a warp per matrix, four matrices a block. Lane i holds row i
 //   in registers; the pivot search is two warp reductions (the largest
 //   key, then the smallest position holding it), the pivot row reaches
@@ -38,6 +38,16 @@
 //   each entry taking the panel's 32 updates in column order: two block
 //   barriers a panel. A panel of at most 32 rows (the last) is one warp's,
 //   as in the small design.
+// * beyond a block's shared memory (float64 above s = 168, float32 above
+//   239: the staged sweeps' arrow Schur complements, 694 wide on the
+//   softplus quadrotor): a cooperative grid, the matrices in device memory
+//   (a workspace by physical row, L2-resident), each matrix's rows dealt
+//   over G blocks (row p to block p mod G), a column a step with one
+//   grid.sync() a step. Every block keeps the whole position map in shared
+//   memory and swaps it the same way; a step reads the G blocks' candidate
+//   (key, position) pairs, picks the same winner everywhere, reads the
+//   pivot row once into shared memory, updates the block's rows below it
+//   and offers the block's candidate for the next column.
 // The solve runs in 32-row panels (panel_solve.cuh): three barriers a panel
 // instead of one a row, the factor's panels copied coalesced into shared
 // memory one panel ahead with cp.async, the diagonal blocks chained by warp
@@ -47,6 +57,11 @@
 // Few columns are split over blocks while the card has idle SMs; many go in
 // tiles of up to 64 columns, the matrix index slowest, so that a matrix's
 // tiles read its factor from L2 together.
+// Where two of the factor's 32-column panels do not fit in shared memory
+// (float64 above s ~ 430), one block per matrix and up to 32 columns keeps
+// X's rows in shared memory and reads the factor from device memory: the
+// same 32-row panels, the diagonal block a thread per column in registers,
+// the rows past it a thread per entry.
 //
 // Built with -fmad=false so that multiplications and subtractions round
 // exactly as the plain PyTorch version's separate operations do. Every
@@ -55,6 +70,7 @@
 // an entry sees), so the tableau and the pivot record agree with the plain
 // version's bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +80,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kPW = 32;              // panel width
 constexpr int kPanelThreads = 256;
@@ -592,6 +609,326 @@ lu_factor_panel_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Beyond a block's shared memory: the cooperative grid design.
+
+constexpr int kGridThreads = 256;
+constexpr int kGridUnroll = 4;     // update entries a thread loads at once
+
+template <typename T>
+__host__ __device__ constexpr size_t grid_smem_bytes(int s, int nown) {
+  return ((size_t)s + nown) * sizeof(T) +
+         (size_t)nown * sizeof(typename KeyOf<T>::type) +
+         (2 * (size_t)s + nown + 2) * sizeof(int);
+}
+
+// Matrix mat's rows b, b + G, b + 2G, ... (nown of them) are this block's.
+// wk: the matrix by physical row in device memory, read and written through
+// L2 (__ldcg / __stcg), since other blocks read its pivot rows. cand: two
+// buffers of every block's candidate (key, position) for the next column.
+// Every block reaches every grid.sync() the same number of times.
+template <typename T>
+__global__ void __launch_bounds__(kGridThreads)
+lu_factor_grid_kernel(const T* __restrict__ in, T* __restrict__ out,
+                      int32_t* __restrict__ perm, T* work,
+                      unsigned long long* cand, long long nb, int s, int G) {
+  using K = typename KeyOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::grid_group grid = cg::this_grid();
+  const int nblk = gridDim.x;
+  const int groups = nblk / G;
+  const int g = blockIdx.x / G;
+  const int b = blockIdx.x - g * G;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nown = (s - b + G - 1) / G;
+  const int mown = (s + G - 1) / G;            // block 0's, the most
+  T* U = reinterpret_cast<T*>(smem_raw);       // the pivot row
+  T* lr = U + s;                               // active rows' multipliers
+  K* ck = reinterpret_cast<K*>(lr + mown);     // own rows' next keys
+  int* Pm = reinterpret_cast<int*>(ck + mown); // position -> physical row
+  int* Ps = Pm + s;                            // physical row -> position
+  int* act = Ps + s;                           // active own rows
+  int& na_s = act[mown];                       // their count
+  int& win_s = act[mown + 1];                  // the pivot's physical row
+  const int64_t ss = (int64_t)s * s;
+
+  // warp 0 offers the block's candidate: the largest key among its rows'
+  // ck, then the smallest position
+  auto offer = [&](int buf) {
+    K bk = K(0);
+    unsigned bp = 0xffffffffu;
+    for (int k = lane; k < nown; k += 32) {
+      const K kk = ck[k];
+      const unsigned ps = (unsigned)Ps[b + k * G];
+      if (kk > bk || (kk == bk && kk != K(0) && ps < bp)) {
+        bk = kk;
+        bp = ps;
+      }
+    }
+    const K best = warp_max(bk);
+    const unsigned bpos =
+        __reduce_min_sync(kAll, bk == best ? bp : 0xffffffffu);
+    if (lane == 0) {
+      const size_t e = ((size_t)buf * nblk + blockIdx.x) * 2;
+      __stcg(cand + e, (unsigned long long)best);
+      __stcg(cand + e + 1, (unsigned long long)bpos);
+    }
+  };
+
+  const long long rounds = (nb + groups - 1) / groups;
+  for (long long q = 0; q < rounds; ++q) {
+    const long long mat = g + q * groups;
+    const bool live = mat < nb;                // the same for the group
+    const T* src = in + (live ? mat : 0) * ss;
+    T* wk = work + (live ? mat : 0) * ss;
+    for (int i = tid; i < s; i += nt) {
+      Pm[i] = i;
+      Ps[i] = i;
+    }
+    for (int k = 0; k < nown; ++k) {
+      const int64_t row = (int64_t)(b + k * G) * s;
+      for (int c = tid; c < s; c += nt) {
+        const T v = live ? src[row + c] : T(0);
+        if (live) __stcg(wk + row + c, v);
+        if (c == 0) ck[k] = live ? pivot_key(v) : K(0);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) offer(0);
+
+    for (int j = 0; j < s; ++j) {
+      grid.sync();                             // step j's candidates
+      if (!live) continue;
+      if (warp == 0) {
+        K bk = K(0);
+        unsigned bp = 0xffffffffu;
+        for (int i = lane; i < G; i += 32) {
+          const size_t e = ((size_t)(j & 1) * nblk + g * G + i) * 2;
+          const K kk = (K)__ldcg(cand + e);
+          const unsigned ps = (unsigned)__ldcg(cand + e + 1);
+          if (kk > bk || (kk == bk && ps < bp)) {
+            bk = kk;
+            bp = ps;
+          }
+        }
+        const K best = warp_max(bk);
+        const int r = (int)__reduce_min_sync(kAll, bk == best ? bp
+                                                              : 0xffffffffu);
+        if (lane == 0) {
+          if (b == 0) perm[mat * s + j] = r;
+          const int pj = Pm[j], pr = Pm[r];
+          Pm[j] = pr;
+          Pm[r] = pj;
+          Ps[pr] = j;
+          Ps[pj] = r;
+          win_s = pr;
+        }
+        __syncwarp();
+        const T d = pivot_recip(__ldcg(wk + (int64_t)Pm[j] * s + j));
+        // the own rows below the pivot, and their multipliers
+        int na = 0;
+        for (int k0 = 0; k0 < nown; k0 += 32) {
+          const int k = k0 + lane;
+          const int p = b + k * G;
+          const bool a = k < nown && Ps[p] > j;
+          if (k < nown) ck[k] = K(0);
+          const unsigned m = __ballot_sync(kAll, a);
+          if (a) {
+            const int slot = na + __popc(m & ((1u << lane) - 1u));
+            act[slot] = k;
+            lr[slot] = __ldcg(wk + (int64_t)p * s + j) * d;
+          }
+          na += __popc(m);
+        }
+        if (lane == 0) na_s = na;
+      }
+      __syncthreads();
+      const int na = na_s;
+      const int64_t prow = (int64_t)win_s * s;
+      for (int c = j + 1 + tid; c < s; c += nt) U[c] = __ldcg(wk + prow + c);
+      __syncthreads();
+      const int ncols = s - j - 1;
+      const int total = na * ncols;
+      for (int base = tid; base < total; base += nt * kGridUnroll) {
+        T v[kGridUnroll];
+        int64_t off[kGridUnroll];
+        int aa[kGridUnroll], cc[kGridUnroll];
+#pragma unroll
+        for (int u = 0; u < kGridUnroll; ++u) {
+          const int idx = base + u * nt;
+          if (idx < total) {
+            aa[u] = idx / ncols;
+            cc[u] = j + 1 + (idx - aa[u] * ncols);
+            off[u] = (int64_t)(b + act[aa[u]] * G) * s + cc[u];
+            v[u] = __ldcg(wk + off[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGridUnroll; ++u) {
+          const int idx = base + u * nt;
+          if (idx < total) {
+            const T x = v[u] - lr[aa[u]] * U[cc[u]];
+            __stcg(wk + off[u], x);
+            if (cc[u] == j + 1) ck[act[aa[u]]] = pivot_key(x);
+          }
+        }
+      }
+      for (int a = tid; a < na; a += nt)
+        __stcg(wk + (int64_t)(b + act[a] * G) * s + j, lr[a]);
+      __syncthreads();
+      if (warp == 0 && j + 1 < s) offer((j + 1) & 1);
+    }
+    if (live) {
+      T* dst = out + mat * ss;
+      for (int k = 0; k < nown; ++k) {
+        const int p = b + k * G;
+        const int64_t to = (int64_t)Ps[p] * s, from = (int64_t)p * s;
+        for (int c = tid; c < s; c += nt) dst[to + c] = __ldcg(wk + from + c);
+      }
+    }
+    grid.sync();                 // the candidate buffers are free again
+  }
+}
+
+// ---------------------------------------------------------------------------
+// lu_solve beyond the panel design's shared memory.
+
+constexpr int kRowsThreads = 256;
+constexpr int kRowsCols = 32;      // columns a block, at most
+constexpr int kD = 32;             // panel rows
+
+template <typename T>
+__host__ __device__ constexpr size_t rows_smem_bytes(int s, int kb) {
+  return ((size_t)s * kb + kD * (kD + 1) + (size_t)kD * kb + kD) *
+             sizeof(T) +
+         (size_t)s * sizeof(int);
+}
+
+// One block per matrix (blockIdx.y) and kb columns (blockIdx.x). Xs: the
+// block's columns of X by row; the diagonal block D of each 32-row panel is
+// staged in shared memory, the rows past the panel read the factor from
+// device memory (a row's 32 panel entries are contiguous).
+template <typename T>
+__global__ void __launch_bounds__(kRowsThreads)
+lu_solve_rows_kernel(const T* __restrict__ F, const int32_t* __restrict__ perm,
+                     const T* __restrict__ B, T* __restrict__ X, int s, int K,
+                     int kb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Xs = reinterpret_cast<T*>(smem_raw);      // s x kb
+  T* D = Xs + (size_t)s * kb;                  // 32 x 33
+  T* Xt = D + kD * (kD + 1);                   // 32 x kb, scaled rows
+  T* dd = Xt + kD * kb;                        // 32 pivot reciprocals
+  int* idx = reinterpret_cast<int*>(dd + kD);  // the gather map
+  const int64_t mat = blockIdx.y;
+  const int c0 = blockIdx.x * kb;
+  const int kw = min(kb, K - c0);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const T* f = F + mat * (int64_t)s * s;
+
+  for (int i = tid; i < s; i += nt) idx[i] = i;
+  __syncthreads();
+  if (tid == 0) {                 // the swaps in order (LAPACK laswp)
+    const int32_t* pr = perm + mat * s;
+    for (int j = 0; j < s; ++j) {
+      const int r = pr[j];
+      const int t = idx[j];
+      idx[j] = idx[r];
+      idx[r] = t;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < s * kw; e += nt) {
+    const int i = e / kw, c = e - (e / kw) * kw;
+    Xs[(size_t)i * kb + c] = B[(mat * s + idx[i]) * (int64_t)K + c0 + c];
+  }
+
+  // unit-L forward
+  for (int p0 = 0; p0 < s; p0 += kD) {
+    const int w = min(kD, s - p0);
+    for (int e = tid; e < w * w; e += nt) {
+      const int a = e / w, t = e - (e / w) * w;
+      D[a * (kD + 1) + t] = f[(int64_t)(p0 + a) * s + p0 + t];
+    }
+    __syncthreads();
+    if (tid < kw) {
+      T x[kD];
+#pragma unroll
+      for (int a = 0; a < kD; ++a)
+        x[a] = a < w ? Xs[(size_t)(p0 + a) * kb + tid] : T(0);
+#pragma unroll
+      for (int t = 0; t < kD; ++t) {
+#pragma unroll
+        for (int a = t + 1; a < kD; ++a)
+          if (a < w) x[a] = x[a] - D[a * (kD + 1) + t] * x[t];
+      }
+#pragma unroll
+      for (int a = 0; a < kD; ++a)
+        if (a < w) Xs[(size_t)(p0 + a) * kb + tid] = x[a];
+    }
+    __syncthreads();
+    const int r0 = p0 + w;
+    for (int e = tid; e < (s - r0) * kw; e += nt) {
+      const int i = r0 + e / kw, c = e - (e / kw) * kw;
+      const T* fr = f + (int64_t)i * s + p0;
+      T acc = Xs[(size_t)i * kb + c];
+      for (int t = 0; t < w; ++t)
+        acc = acc - fr[t] * Xs[(size_t)(p0 + t) * kb + c];
+      Xs[(size_t)i * kb + c] = acc;
+    }
+    __syncthreads();
+  }
+
+  // U backward: x_j = b_j d_j takes part in the rows above it; the output
+  // row is the same product
+  for (int p0 = ((s - 1) / kD) * kD; p0 >= 0; p0 -= kD) {
+    const int w = min(kD, s - p0);
+    for (int e = tid; e < w * w; e += nt) {
+      const int a = e / w, t = e - (e / w) * w;
+      D[a * (kD + 1) + t] = f[(int64_t)(p0 + a) * s + p0 + t];
+    }
+    for (int t = tid; t < w; t += nt)
+      dd[t] = pivot_recip(f[(int64_t)(p0 + t) * s + p0 + t]);
+    __syncthreads();
+    if (tid < kw) {
+      T x[kD];
+#pragma unroll
+      for (int a = 0; a < kD; ++a)
+        x[a] = a < w ? Xs[(size_t)(p0 + a) * kb + tid] : T(0);
+#pragma unroll
+      for (int t = kD - 1; t >= 0; --t) {
+        if (t < w) {
+          const T xt = x[t] * dd[t];
+          Xt[t * kb + tid] = xt;
+#pragma unroll
+          for (int a = 0; a < t; ++a)
+            x[a] = x[a] - D[a * (kD + 1) + t] * xt;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kD; ++a)
+        if (a < w) Xs[(size_t)(p0 + a) * kb + tid] = x[a];
+    }
+    __syncthreads();
+    for (int e = tid; e < p0 * kw; e += nt) {
+      const int i = e / kw, c = e - (e / kw) * kw;
+      const T* fr = f + (int64_t)i * s + p0;
+      T acc = Xs[(size_t)i * kb + c];
+      for (int t = w - 1; t >= 0; --t) acc = acc - fr[t] * Xt[t * kb + c];
+      Xs[(size_t)i * kb + c] = acc;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < s * kw; e += nt) {
+    const int i = e / kw, c = e - (e / kw) * kw;
+    X[(mat * s + i) * (int64_t)K + c0 + c] =
+        Xs[(size_t)i * kb + c] * pivot_recip(f[(int64_t)i * s + i]);
+  }
+}
+
 template <typename T>
 int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
                   void* stream) {
@@ -628,14 +965,72 @@ int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
   return (int)cudaGetLastError();
 }
 
+// The grid design: groups of G blocks, a group per matrix at a time, at
+// most one block an SM (a cooperative grid must be resident at once).
+template <typename T>
+int launch_factor_grid(const T* in, T* out, int32_t* perm, T* work,
+                       unsigned long long* cand, long long nb, int s,
+                       void* stream) {
+  const panel::DeviceInfo* d = nullptr;
+  cudaError_t e = panel::device_info(&d);
+  if (e != cudaSuccess) return (int)e;
+  if (!d->coop) return (int)cudaErrorNotSupported;
+  const int groups = (int)(nb < d->sms ? nb : d->sms);
+  int G = d->sms / groups;
+  G = G < s ? G : s;
+  const size_t smem = grid_smem_bytes<T>(s, (s + G - 1) / G);
+  if (smem > (size_t)d->cap) return (int)cudaErrorInvalidValue;
+  static bool ready[panel::kMaxDevices];
+  if (!ready[d->dev]) {
+    e = cudaFuncSetAttribute(lu_factor_grid_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d->cap);
+    if (e != cudaSuccess) return (int)e;
+    ready[d->dev] = true;
+  }
+  int ss = s, gg = G;
+  long long n = nb;
+  void* args[] = {(void*)&in, (void*)&out, (void*)&perm, (void*)&work,
+                  (void*)&cand, (void*)&n, (void*)&ss, (void*)&gg};
+  e = cudaLaunchCooperativeKernel((const void*)lu_factor_grid_kernel<T>,
+                                  dim3((unsigned)(groups * G)),
+                                  dim3(kGridThreads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();          // not left for the next launch to report
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The panel design where one column's plan fits in shared memory, else the
+// rows design, columns a block halved until it fits.
 template <typename T>
 int launch_solve(const T* F, const int32_t* perm, const T* B, T* X,
                  long long nb, int s, int K, void* stream) {
   const panel::DeviceInfo* d = nullptr;
   cudaError_t e = panel::device_info(&d);
   if (e != cudaSuccess) return (int)e;
-  return (int)panel::launch<T, panel::kLU>(F, perm, B, X, nb, s, K, *d,
-                                           (cudaStream_t)stream);
+  if (panel::fits<T>(panel::kLU, s, d->cap))
+    return (int)panel::launch<T, panel::kLU>(F, perm, B, X, nb, s, K, *d,
+                                             (cudaStream_t)stream);
+  int kb = K < kRowsCols ? K : kRowsCols;
+  while (kb > 1 && rows_smem_bytes<T>(s, kb) > (size_t)d->cap)
+    kb = (kb + 1) / 2;
+  const size_t smem = rows_smem_bytes<T>(s, kb);
+  if (smem > (size_t)d->cap) return (int)cudaErrorInvalidValue;
+  static bool ready[panel::kMaxDevices];
+  if (!ready[d->dev]) {
+    e = cudaFuncSetAttribute(lu_solve_rows_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d->cap);
+    if (e != cudaSuccess) return (int)e;
+    ready[d->dev] = true;
+  }
+  const dim3 grid((unsigned)((K + kb - 1) / kb), (unsigned)nb);
+  lu_solve_rows_kernel<T><<<grid, kRowsThreads, smem, (cudaStream_t)stream>>>(
+      F, perm, B, X, s, K, kb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -650,6 +1045,26 @@ int lu_factor_f32(const float* in, float* out, int32_t* perm, long long nb,
 int lu_factor_f64(const double* in, double* out, int32_t* perm,
                   long long nb, int s, void* stream) {
   return launch_factor<double>(in, out, perm, nb, s, stream);
+}
+
+int lu_factor_grid_f32(const float* in, float* out, int32_t* perm,
+                       float* work, unsigned long long* cand, long long nb,
+                       int s, void* stream) {
+  return launch_factor_grid<float>(in, out, perm, work, cand, nb, s, stream);
+}
+
+int lu_factor_grid_f64(const double* in, double* out, int32_t* perm,
+                       double* work, unsigned long long* cand, long long nb,
+                       int s, void* stream) {
+  return launch_factor_grid<double>(in, out, perm, work, cand, nb, s, stream);
+}
+
+// 64-bit words of the grid design's candidate buffers (two buffers of a
+// (key, position) pair a block, at most one block an SM).
+int lu_factor_grid_words() {
+  const panel::DeviceInfo* d = nullptr;
+  if (panel::device_info(&d) != cudaSuccess) return -1;
+  return 4 * d->sms;
 }
 
 int lu_solve_f32(const float* F, const int32_t* perm, const float* B,
@@ -667,6 +1082,23 @@ int lu_factor_shared_bytes(int s, int esize) {
   if (s <= kPW) return kSmallWarps * (s <= 16 ? 16 * 17 : 32 * 33) * esize;
   return (int)(esize == 8 ? panel_smem_bytes<double>(s)
                           : panel_smem_bytes<float>(s));
+}
+
+// The design a launch at s x s (esize: 4 or 8) takes on the current
+// device: lu_factor (which 0) 0 a warp a matrix, 1 panels, 2 the grid;
+// lu_solve (which 1) 0 panels, 1 rows; -1 on an error.
+int lu_design(int which, int s, int esize) {
+  const panel::DeviceInfo* d = nullptr;
+  if (panel::device_info(&d) != cudaSuccess) return -1;
+  if (which == 0) {
+    if (s <= kPW) return 0;
+    const size_t need = esize == 8 ? panel_smem_bytes<double>(s)
+                                   : panel_smem_bytes<float>(s);
+    return need <= (size_t)d->cap ? 1 : 2;
+  }
+  const bool fits = esize == 8 ? panel::fits<double>(panel::kLU, s, d->cap)
+                               : panel::fits<float>(panel::kLU, s, d->cap);
+  return fits ? 0 : 1;
 }
 
 int lu_max_shared_bytes() {

@@ -81,17 +81,29 @@ def _as_matrix(L: torch.Tensor, B: torch.Tensor, what: str):
     return Bm, vec
 
 
-def solve_lower_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Forward substitution, one column of L per step."""
-    Bm, vec = _as_matrix(L, B, "solve_lower")
+def _rows_and_steps(L: torch.Tensor, Bm: torch.Tensor):
+    """The substitutions' operands as views, made once: X (nb, n, K) a copy
+    of B, its rows (nb, K) and (nb, 1, K), the rows of L (nb, n, 1) and
+    their diagonal entries (nb, 1)."""
     n, K = Bm.shape[-2], Bm.shape[-1]
     nb = L.shape[:-2].numel()
     Lm = L.reshape(nb, n, n)
     X = Bm.reshape(nb, n, K).clone()
+    diag = torch.diagonal(Lm, dim1=1, dim2=2)[:, :, None].unbind(1)
+    return (X, X.unbind(1), X.unsqueeze(1).unbind(2),
+            Lm.unsqueeze(-1).unbind(1), Lm, diag)
+
+
+def solve_lower_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Forward substitution, one column of L per step."""
+    Bm, vec = _as_matrix(L, B, "solve_lower")
+    n = Bm.shape[-2]
+    X, row, rowu, _, Lm, diag = _rows_and_steps(L, Bm)
+    col = Lm.unsqueeze(-1).unbind(2)              # column j: (nb, n, 1)
     for j in range(n):
-        y = X[:, j] / Lm[:, j, j, None]
-        X[:, j] = y
-        X[:, j + 1:] -= Lm[:, j + 1:, j, None] * y[:, None, :]
+        row[j].div_(diag[j])
+        X.narrow(1, j + 1, n - j - 1).sub_(
+            col[j].narrow(1, j + 1, n - j - 1) * rowu[j])
     X = X.reshape(Bm.shape)
     return X[..., 0] if vec else X
 
@@ -99,14 +111,11 @@ def solve_lower_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def solve_lower_t_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Back substitution with L', one row of L per step."""
     Bm, vec = _as_matrix(L, B, "solve_lower_t")
-    n, K = Bm.shape[-2], Bm.shape[-1]
-    nb = L.shape[:-2].numel()
-    Lm = L.reshape(nb, n, n)
-    X = Bm.reshape(nb, n, K).clone()
+    n = Bm.shape[-2]
+    X, row, rowu, lrow, _, diag = _rows_and_steps(L, Bm)
     for j in range(n - 1, -1, -1):
-        x = X[:, j] / Lm[:, j, j, None]
-        X[:, j] = x
-        X[:, :j] -= Lm[:, j, :j, None] * x[:, None, :]
+        row[j].div_(diag[j])
+        X.narrow(1, 0, j).sub_(lrow[j].narrow(1, 0, j) * rowu[j])
     X = X.reshape(Bm.shape)
     return X[..., 0] if vec else X
 

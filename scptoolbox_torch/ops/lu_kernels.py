@@ -20,11 +20,15 @@ tensor it runs the plain version. Each wrapper counts its kernel launches in
 What bounds the kernels on the H100, and what the designs do about it, is
 noted at the top of the CUDA source: both are latency-bound chains of s
 (factor) or 2s (solve) dependent steps. The factor takes a warp per matrix
-up to s = 32 (rows in the lanes' registers, no block barrier) and above it
-a block per matrix in 32-column panels (one named barrier a column inside a
-panel, three block barriers a panel, virtual row swaps); the solve goes in
-32-row panels (csrc/panel_solve.cuh), three barriers a panel, the factor's
-panels staged in shared memory ahead of their use.
+up to s = 32 (rows in the lanes' registers, no block barrier), above it a
+block per matrix in 32-column panels (one named barrier a column inside a
+panel, three block barriers a panel, virtual row swaps), and where a matrix
+does not fit in a block's shared memory (float64 above s = 168, float32
+above 239) a cooperative grid over the SMs, the matrix in device memory,
+one grid-wide barrier a column. The solve goes in 32-row panels
+(csrc/panel_solve.cuh), three barriers a panel, the factor's panels staged
+in shared memory ahead of their use; where two panels do not fit (float64
+above s ~ 430), the same panels read the factor from device memory.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ LIB = cuda_lib.CudaLibrary("lu_kernels", {
     "lu_factor_f32": (P, P, P, L, I, P), "lu_factor_f64": (P, P, P, L, I, P),
     "lu_solve_f32": (P, P, P, P, L, I, I, P),
     "lu_solve_f64": (P, P, P, P, L, I, I, P),
+    "lu_factor_grid_f32": (P, P, P, P, P, L, I, P),
+    "lu_factor_grid_f64": (P, P, P, P, P, L, I, P),
+    "lu_factor_grid_words": (), "lu_design": (I, I, I),
     "lu_factor_shared_bytes": (I, I), "lu_max_shared_bytes": ()})
 
 _TINY = 1e-30
@@ -75,12 +82,11 @@ def lu_factor_plain(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         r = torch.argmax(cand, dim=1) + j          # first maximum
         perm[:, j] = r.to(torch.int32)
         rowj = W[:, j, :].clone()
-        rowr = W[ar, r, :].clone()
-        W[:, j, :] = rowr
+        W[:, j, :] = W[ar, r, :]
         W[ar, r, :] = rowj
-        d = _pivot_recip(W[:, j, j])
-        lcol = W[:, j + 1:, j] * d[:, None]
-        W[:, j + 1:, j + 1:] -= lcol[:, :, None] * W[:, j, None, j + 1:]
+        lcol = W[:, j + 1:, j] * _pivot_recip(W[:, j, j])[:, None]
+        W[:, j + 1:, j + 1:].sub_(lcol[:, :, None]
+                                  * W[:, j, None, j + 1:])
         W[:, j + 1:, j] = lcol
     return W.reshape(*lead, s, s), perm.reshape(*lead, s)
 
@@ -99,12 +105,17 @@ def lu_solve_plain(fac, B: torch.Tensor) -> torch.Tensor:
     Pm = torch.lu_unpack(Fm, perm.reshape(-1, s) + 1, unpack_data=False)[0]
     P = Pm.argmax(dim=-2)
     X = torch.gather(B.reshape(-1, s, K), 1, P[:, :, None].expand(nb, s, K))
+    # views, made once: column j of the factor (nb, s, 1), row j of X
+    # (nb, 1, K), the pivot reciprocals (nb, 1, 1)
+    col = Fm.unsqueeze(-1).unbind(2)
+    row = X.unsqueeze(1).unbind(2)
     for j in range(s - 1):
-        X[:, j + 1:, :] -= Fm[:, j + 1:, j, None] * X[:, j, None, :]
+        n = s - j - 1
+        X.narrow(1, j + 1, n).sub_(col[j].narrow(1, j + 1, n) * row[j])
     d = _pivot_recip(torch.diagonal(Fm, dim1=-2, dim2=-1))
+    dj = d[:, :, None, None].unbind(1)
     for j in range(s - 1, 0, -1):
-        xj = X[:, j, None, :] * d[:, j, None, None]
-        X[:, :j, :] -= Fm[:, :j, j, None] * xj
+        X.narrow(1, 0, j).sub_(col[j].narrow(1, 0, j) * (row[j] * dj[j]))
     X = X * d[:, :, None]
     return X.reshape(*lead, s, K)
 
@@ -127,6 +138,14 @@ def _max_shared_bytes(index: int) -> int:
         return int(LIB.load().lu_max_shared_bytes())
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_words(index: int) -> int:
+    """64-bit words of the grid design's candidate buffers on card
+    `index` (asked once)."""
+    with torch.cuda.device(index):
+        return int(LIB.load().lu_factor_grid_words())
+
+
 def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched pivoted LU of (..., s, s): the CUDA kernel on the card, the
     plain version on the CPU."""
@@ -143,13 +162,16 @@ def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if nb == 0 or s == 0:
         return out, perm
     need = _factor_shared_bytes(s, Mc.element_size())
-    cap = _max_shared_bytes(M.device.index)
-    if need > cap:
-        raise ValueError(f"lu_factor: a {s}x{s} {M.dtype} block needs "
-                         f"{need} bytes of shared memory, the card allows "
-                         f"{cap}")
-    cuda_lib.launch(LIB, "lu_factor", M.dtype, M.device, Mc.data_ptr(),
-                    out.data_ptr(), perm.data_ptr(), nb, s)
+    if need <= _max_shared_bytes(M.device.index):
+        cuda_lib.launch(LIB, "lu_factor", M.dtype, M.device, Mc.data_ptr(),
+                        out.data_ptr(), perm.data_ptr(), nb, s)
+    else:       # the grid design: the matrices stay in device memory
+        work = torch.empty_like(Mc)
+        cand = torch.empty(_grid_words(M.device.index), dtype=torch.int64,
+                           device=M.device)
+        cuda_lib.launch(LIB, "lu_factor_grid", M.dtype, M.device,
+                        Mc.data_ptr(), out.data_ptr(), perm.data_ptr(),
+                        work.data_ptr(), cand.data_ptr(), nb, s)
     lu_factor.launches += 1
     cuda_lib.record("lu_factor", M.dtype, nb, s, s)
     return out, perm
@@ -160,9 +182,8 @@ lu_factor.launches = 0
 
 def lu_solve(fac, B: torch.Tensor) -> torch.Tensor:
     """Solve the factored systems for B (..., s, K): the CUDA kernel on the
-    card (one shared factor per matrix, any number of RHS columns; its
-    launch fails when two 32-column panels of the factor do not fit in a
-    block's shared memory), the plain version on the CPU."""
+    card (one shared factor per matrix, any number of RHS columns), the
+    plain version on the CPU."""
     F, perm = fac
     if B.device.type == "cpu":
         return lu_solve_plain(fac, B)

@@ -1,10 +1,11 @@
 """Trajectory problem definition: a dataclass of pure PyTorch functions.
 
 Counterpart of `scptoolbox_tpu/parser/problem.py` (`bind_consts` :49, the
-cone constructors :65-116 with `exp_cone` :111, `GuSTORunningCost` :127,
-`_taylor1` :163, `make_gusto_running_cost` :179, `TrajectoryProblem` :231
-with its `gusto_cost` / `force_hard` fields :294-298, `affine_blocks` /
-`quadratic_form` :341-393). Constraints are functions returning cone-tagged
+cone constructors :65-116 with `geom` :107 and `exp_cone` :111,
+`GuSTORunningCost` :127, `_taylor1` :163, `make_gusto_running_cost` :179,
+`TrajectoryProblem` :231 with its `gusto_cost` / `force_hard` fields
+:294-298, `constraint_structure` :332, `affine_blocks` / `quadratic_form`
+:341-393). Constraints are functions returning cone-tagged
 residual blocks (`ConeCon`); affine structure is extracted with
 `torch.func.jacfwd` at the reference point (exact for the affine-in-decision
 functions the contract requires), quadratic costs by `torch.func.hessian`.
@@ -53,7 +54,7 @@ class ConeKind(enum.Enum):
     SOC = "soc"        # v[0] >= ||v[1:]||_2
     L1 = "l1"          # v[0] >= ||v[1:]||_1   (lowered: aux slacks)
     LINF = "linf"      # v[0] >= max|v[1:]|    (lowered: linear rows)
-    GEOM = "geom"      # not ported yet
+    GEOM = "geom"      # geomean(v[1:]) >= v[0] (lowered to SOC(3) nodes)
     EXP = "exp"        # (x, y, z): y > 0, y e^{x/y} <= z (native rows)
 
 
@@ -87,6 +88,10 @@ def l1(v) -> ConeCon:
 
 def linf(v) -> ConeCon:
     return ConeCon(ConeKind.LINF, _vec(v))
+
+
+def geom(v) -> ConeCon:
+    return ConeCon(ConeKind.GEOM, _vec(v))
 
 
 def exp_cone(v) -> ConeCon:
@@ -258,6 +263,15 @@ class AffineBlocks(NamedTuple):
     dims: Tuple[int, ...]
     J: torch.Tensor
     v0: torch.Tensor
+
+
+def constraint_structure(fn: Callable, *example_args
+                         ) -> Tuple[Tuple[ConeKind, ...], Tuple[int, ...]]:
+    """The static structure of a constraint function (its blocks' kinds and
+    dimensions), from one evaluation at example arguments."""
+    cons = fn(*example_args)
+    return (tuple(c.kind for c in cons),
+            tuple(int(c.v.shape[0]) for c in cons))
 
 
 def affine_blocks(fn: Callable, args: Sequence[torch.Tensor],

@@ -1,16 +1,18 @@
 """Direct conic-program modeling layer: `ConicProgram` on the PyTorch IPM.
 
 Counterpart of `scptoolbox_tpu/parser/program.py:88` (the host C++
-`backend="native"` waits), exponential-cone constraints included (:300,
-:405). Constraints are PyTorch functions of the
-variable blocks (and parameters) returning lists of ConeCon, affine in the
-variables; costs are affine or convex quadratic. Their structure is
-extracted exactly by `torch.func.jacfwd` / `hessian`, and the program lowers
-to one dense (A, b, c) solved by ops.ipm.
+`backend="native"` waits), exponential-cone and GEOM constraints included
+(:300, :405), with the introspection accessors `constraints`, `variables`,
+`parameters`, `describe` and `__repr__` (:310-365). Constraints are
+PyTorch functions of the variable blocks (and parameters) returning lists
+of ConeCon, affine in the variables; costs are affine or convex quadratic.
+Their structure is extracted exactly by `torch.func.jacfwd` / `hessian`,
+and the program lowers to one dense (A, b, c) solved by ops.ipm.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -233,6 +235,58 @@ class ConicProgram:
         A, b, c, const = asm.finish(self._S_full, self._c_full)
         return A[0], b[0], c[0], const[0]
 
+    # -- introspection (the JAX package's regex accessors and summary) ----
+
+    def constraints(self, pattern: str = ".*"):
+        """[(name, kind names, dims)] of the constraint groups whose name
+        matches the regex."""
+        rx = re.compile(pattern)
+        return [(c.name, tuple(p.kind.name for p in c.posters),
+                 tuple(p.dim for p in c.posters))
+                for c in self._cons if rx.search(c.name)]
+
+    def variables(self, pattern: str = ".*"):
+        """[(name, shape)] of the variable blocks matching the regex."""
+        rx = re.compile(pattern)
+        return [(name, v.shape) for name, v in self._vars.items()
+                if rx.search(name)]
+
+    def parameters(self, pattern: str = ".*"):
+        """[(name, shape)] of the parameter blocks matching the regex."""
+        rx = re.compile(pattern)
+        return [(name, p.shape) for name, (p, _) in self._pars.items()
+                if rx.search(name)]
+
+    def describe(self) -> str:
+        """The program's summary: variables, parameters, constraint blocks
+        and costs."""
+        lines = [f"ConicProgram ({'built' if self._built else 'unbuilt'}): "
+                 f"{self.layout.n} variables"
+                 + (f", {self.plan.m} rows" if self._built else "")]
+        shp = lambda s: "scalar" if not s else str(s)
+        if self._vars:
+            lines.append("  variables:")
+            lines += [f"    {name}: {shp(v.shape)}"
+                      for name, v in self._vars.items()]
+        if self._pars:
+            lines.append("  parameters:")
+            lines += [f"    {name}: {shp(p.shape)}"
+                      for name, (p, _) in self._pars.items()]
+        if self._cons:
+            lines.append("  constraints:")
+            for c in self._cons:
+                blocks = ", ".join(
+                    f"{p.kind.name}({p.dim})" for p in c.posters)
+                lines.append(f"    {c.name}: {blocks}")
+        if self._costs:
+            lines.append(f"  costs: {len(self._costs)} term(s)"
+                         + ("" if all(self._cost_linear)
+                            else " (quadratic epigraphs lowered)"))
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return self.describe()
+
     def solve(self, tol: float = 1e-8, max_iter: int = 60,
               **params) -> ProgramSolution:
         """Solve with the given parameter values (defaults otherwise)."""
@@ -251,7 +305,8 @@ class ConicProgram:
                 if po.kind in (ConeKind.ZERO, ConeKind.NONPOS):
                     duals[nm] = sol.z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)]
-                elif po.kind in (ConeKind.SOC, ConeKind.EXP):
+                elif po.kind in (ConeKind.SOC, ConeKind.GEOM,
+                                 ConeKind.EXP):
                     duals[nm] = sol.z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)].reshape(-1)
         return ProgramSolution(values=values, obj=sol.obj + const,

@@ -4,11 +4,10 @@ Counterpart of `scptoolbox_tpu/solvers/structure.py` (`resolve_kkt` :31,
 `ipm_kkt_kwargs` :64, `random_dltv` :78, `build_kkt_builder` :87,
 `build_staged_builder` :114). The port carries the normal-equations block
 sweep (`ops/block_kkt.py`, the float64 auto choice for n >= 600 and what
-`structured_kkt=True` forces), the staged cyclic-reduction methods
-("staged_cr", "staged_crpl") and the dense ones ("schur", "lu", and
-"qrchol", the null-space QR-Cholesky KKT of ops/ipm.py). The other
-staged variants are not ported yet: asking for them raises
-NotImplementedError rather than silently running a different method.
+`structured_kkt=True` forces), the five staged augmented methods of
+`ops/aug_kkt.py` ("staged_lu", "staged_qr", "staged_cr", "staged_crpl",
+"staged_crqd") and the dense ones ("schur", "lu", and "qrchol", the
+null-space QR-Cholesky KKT of ops/ipm.py).
 """
 
 from __future__ import annotations
@@ -20,16 +19,15 @@ import torch
 
 from scptoolbox_torch.ops.aug_kkt import (make_staged_cr_builder,
                                           make_staged_crpl_builder,
+                                          make_staged_crqd_builder,
+                                          make_staged_lu_builder,
+                                          make_staged_qr_builder,
                                           probe_aug_structure)
 from scptoolbox_torch.ops.block_kkt import make_kkt_builder, probe_structure
 from scptoolbox_torch.ops.discretize import DLTV
 
-STAGED_METHODS = ("staged_cr", "staged_crpl")
-_LATER = {
-    "staged_lu": "the StagedLU/StagedQR/StagedCRQD slice",
-    "staged_qr": "the StagedLU/StagedQR/StagedCRQD slice",
-    "staged_crqd": "the StagedLU/StagedQR/StagedCRQD slice",
-}
+STAGED_METHODS = ("staged_lu", "staged_qr", "staged_cr",
+                  "staged_crpl", "staged_crqd")
 
 
 def resolve_kkt(tmpl, probe, kkt_method, structured_kkt):
@@ -39,10 +37,10 @@ def resolve_kkt(tmpl, probe, kkt_method, structured_kkt):
       * auto, n >= 600, float32: "staged_cr";
       * auto, n >= 600, float64, or structured_kkt=True: the block sweep
         (build_kkt_builder; the dense Schur KKT where the probe fails);
-      * otherwise the dense Schur KKT."""
-    if kkt_method in _LATER:
-        raise NotImplementedError(
-            f"kkt_method={kkt_method!r} comes with {_LATER[kkt_method]}")
+      * otherwise the dense Schur KKT.
+    A staged method whose probe fails (or "staged_lu" on a spec with exp
+    cones) resolves with no builder: ipm_kkt_kwargs then takes the dense
+    augmented LU."""
     if kkt_method in STAGED_METHODS:
         return kkt_method, build_staged_builder(
             tmpl, probe, variant=kkt_method.split("_", 1)[1])
@@ -98,12 +96,21 @@ def build_kkt_builder(tmpl, assemble: Callable[[int], np.ndarray],
 
 
 def build_staged_builder(tmpl, assemble: Callable[[int], np.ndarray],
-                         variant: str = "cr") -> Optional[Callable]:
-    """Probe the stage structure and return the augmented staged builder
-    ("cr": library LU, "crpl": the hand-written LU kernels); None when the
-    template does not fit the stage pattern."""
+                         variant: str) -> Optional[Callable]:
+    """Probe the stage structure and return the augmented staged builder:
+    "lu" (the forward LU stage sweep), "qr" (the band-QR sweep), "cr"
+    (cyclic reduction on the library LU), "crpl" (the same on the
+    hand-written LU kernels) or "crqd" (cyclic reduction with 2-Cholesky
+    block inverses). None when the template does not fit the stage pattern,
+    and for "lu" on a spec with exp cones (their W^2 blocks are dense 3x3,
+    which only the NT-scaled sweeps avoid)."""
+    if tmpl.spec.nexp > 0 and variant == "lu":
+        return None
     st = probe_aug_structure(tmpl.layout, tmpl.N, tmpl.spec, assemble)
     if st is None:
         return None
-    return {"cr": make_staged_cr_builder,
-            "crpl": make_staged_crpl_builder}[variant](st)
+    return {"lu": make_staged_lu_builder,
+            "qr": make_staged_qr_builder,
+            "cr": make_staged_cr_builder,
+            "crpl": make_staged_crpl_builder,
+            "crqd": make_staged_crqd_builder}[variant](st)

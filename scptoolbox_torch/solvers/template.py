@@ -2,7 +2,8 @@
 the outer SCP loops.
 
 Counterpart of `scptoolbox_tpu/solvers/template.py` (`_perturb_consts` :49,
-`BlockPoster` :81 with its EXP kind :149-153 / :172-173,
+`BlockPoster` :81 with its EXP kind :149-153 / :172-173 and the GEOM
+lowering :115-145 / :198-240,
 `post_quadratic_epigraphs` :245, `SCPTemplate` :313 with GuSTO's soft state
 set (`soft_X`, the indicator layout :401-450) and `vs_nonneg` (:322-332,
 :399-401), `assemble_core` :572 with `post_sets_soft` :650-688 and the
@@ -67,8 +68,13 @@ class BlockPoster:
     """Plans rows (and auxiliary variables) for `count` copies of one affine
     cone block `v in K` of dimension `dim`, then posts the coefficients.
     Lowerings: L1 v[0] >= ||v[1:]||_1 via aux w with +-v[1:] <= w,
-    sum(w) <= v[0]; LINF v[0] >= max|v[1:]| via +-v[1:] <= v[0]. EXP
-    blocks (3-dim) post native exponential-cone rows."""
+    sum(w) <= v[0]; LINF v[0] >= max|v[1:]| via +-v[1:] <= v[0]; GEOM
+    geomean(v[1:]) >= v[0] (n = dim - 1 terms) via a balanced binary tree
+    of sqrt nodes w >= sqrt(a b) <=> [a + b, 2 w, a - b] in SOC(3), the
+    leaves padded with v[0] to the next power of two m and the root pinned
+    to v[0]: m - 1 SOC(3) blocks and m - 2 aux variables a copy, one
+    nonneg row for n = 1. EXP blocks (3-dim) post native
+    exponential-cone rows."""
 
     def __init__(self, name: str, kind: ConeKind, dim: int, count: int,
                  layout: VarLayout, plan: RowPlan):
@@ -90,12 +96,36 @@ class BlockPoster:
         elif kind == ConeKind.LINF:
             plan.nonneg(name + "_lo", count * (dim - 1))
             plan.nonneg(name + "_hi", count * (dim - 1))
+        elif kind == ConeKind.GEOM:
+            n_leaf = dim - 1
+            assert n_leaf >= 1
+            self._geom_tree = None
+            if n_leaf == 1:
+                plan.nonneg(name, count)              # t <= x_1
+            else:
+                m_leaf = 1 << (n_leaf - 1).bit_length()
+                level = ([("res", i + 1) for i in range(n_leaf)]
+                         + [("res", 0)] * (m_leaf - n_leaf))
+                aux = 0
+                pairs = []
+                while len(level) > 2:
+                    nxt = []
+                    for a, b in zip(level[0::2], level[1::2]):
+                        pairs.append((a, b, ("aux", aux)))
+                        nxt.append(("aux", aux))
+                        aux += 1
+                    level = nxt
+                pairs.append((level[0], level[1], ("res", 0)))
+                self._geom_tree = pairs
+                self._geom_naux = aux
+                if aux:
+                    layout.add(name + "_aux", count, aux)
+                plan.soc(name, count * len(pairs), 3)
         elif kind == ConeKind.EXP:
             assert dim == 3, f"EXP cone blocks are 3-dim, got {dim}"
             plan.exp(name, count)
         else:
-            raise NotImplementedError(
-                f"cone kind {kind} is not ported yet")
+            raise NotImplementedError(f"cone kind {kind}")
 
     def post(self, asm: Assembler, plan: RowPlan, layout: VarLayout,
              cols: np.ndarray, J, v0) -> None:
@@ -137,6 +167,49 @@ class BlockPoster:
             hi = plan.rows(name + "_hi").reshape(count, d1)
             asm.add_A(hi, cols, -J[..., 1:, :] - J[..., 0:1, :])
             asm.add_b(hi, v0[..., 1:] + v0[..., 0:1])
+        elif kind == ConeKind.GEOM:
+            self._post_geom(asm, plan, layout, cols, J, v0)
+
+    def _post_geom(self, asm, plan, layout, cols, J, v0) -> None:
+        name, count = self.name, self.count
+        if self._geom_tree is None:
+            # n = 1: x_1 - t >= 0, a nonneg row
+            rows = plan.rows(name).reshape(count, 1)
+            asm.add_A(rows, cols, J[..., 0:1, :] - J[..., 1:2, :])
+            asm.add_b(rows, v0[..., 1:2] - v0[..., 0:1])
+            return
+        # node (a, b, w) posts [val(a) + val(b), 2 val(w), val(a) - val(b)]
+        naux = self._geom_naux
+        nc = cols.shape[1]
+        aux_cols = (layout.idx(name + "_aux").reshape(count, naux) if naux
+                    else np.zeros((count, 0), np.int64))
+        all_cols = np.concatenate([np.asarray(cols), aux_cols], axis=1)
+        Jx = torch.cat([J, J.new_zeros(J.shape[:-1] + (naux,))], dim=-1)
+
+        def val(entry):
+            """(J row (..., count, nc + naux), v0 (..., count)) of a node."""
+            tag, i = entry
+            if tag == "res":
+                return Jx[..., i, :], v0[..., i]
+            row = Jx.new_zeros(Jx.shape[:-2] + (nc + naux,))
+            row[..., nc + i] = 1.0
+            return row, v0.new_zeros(v0.shape[:-1])
+
+        Jrows, v0rows = [], []
+        for a, b, w in self._geom_tree:
+            (Ja, va), (Jb, vb), (Jw, vw) = val(a), val(b), val(w)
+            Jrows.append(torch.stack([Ja + Jb, 2.0 * Jw, Ja - Jb], dim=-2))
+            v0rows.append(torch.stack([va + vb, 2.0 * vw, va - vb], dim=-1))
+        n_pairs = len(self._geom_tree)
+        Jt = torch.stack(Jrows, dim=-3)
+        Jt = Jt.reshape(Jt.shape[:-4] + (count * n_pairs, 3, Jt.shape[-1]))
+        v0t = torch.stack(v0rows, dim=-2)
+        v0t = v0t.reshape(v0t.shape[:-3] + (count * n_pairs, 3))
+        colt = np.broadcast_to(all_cols[:, None, :],
+                               (count, n_pairs, all_cols.shape[1])
+                               ).reshape(count * n_pairs, -1)
+        asm.res_soc(plan.rows(name).reshape(count * n_pairs, 3), colt, Jt,
+                    v0t)
 
 
 def post_quadratic_epigraphs(asm: Assembler, rows: np.ndarray,

@@ -37,6 +37,16 @@ ABBR = {"starship": "SS", "starship_f64": "SS64",
         "quadrotor_gusto_softplus_projection": "Gsp proj",
         "quadrotor_gusto_qrchol_projection": "Gqr proj",
         "freeflyer_gusto_step_setup": "FFg set-up",
+        "starship_f64_staged_lu": "SSlu", "starship_f64_staged_qr": "SSqr",
+        "double_integrator_staged_lu": "DI lu",
+        "double_integrator_staged_qr": "DI qr",
+        "starship_crqd_kkt": "CRQD ipm", "starship_crqd_kkt_crqd": "CRQD",
+        "starship_crqd_kkt_crpl": "CRQD crpl",
+        "quadrotor_gusto_softplus_staged_staged_cr": "Gsp cr",
+        "quadrotor_gusto_softplus_staged_auto_f32": "Gsp f32",
+        "quadrotor_gusto_softplus_staged_staged_cr_projection":
+            "Gsp cr proj",
+        "conic_parser": "parser",
         "kernels": "checks"}
 ORDER = ("lu_factor", "lu_solve", "cholesky", "solve_lower", "solve_lower_t",
          "gj_inverse")

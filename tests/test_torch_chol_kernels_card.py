@@ -192,3 +192,55 @@ def test_design_report_matches_the_launchers(card):
         assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
         assert torch.equal(ck.solve_lower_t(L, B),
                            ck.solve_lower_t_plain(L, B))
+
+
+# the staged KKTs' groups: StagedCRQD's ridge ladder on the Starship
+# subproblem at B=32 (Z 105^2 and S 53^2, three rungs of the 16 odd blocks
+# of a scenario in one launch, Lh^-1 by solve_lower at K = n identity
+# columns), float32
+CRQD = [(3 * 32 * 16, 105), (3 * 32 * 16, 53), (3 * 32, 105)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n", CRQD)
+def test_crqd_ladder_equals_plain_on_card(card, nb, n):
+    H = _spd(nb, n, torch.float32, card, seed=n)
+    L = ck.cholesky(H)
+    assert torch.equal(L, ck.cholesky_plain(H))
+    eye = torch.eye(n, device=card).expand(nb, n, n).contiguous()
+    assert torch.equal(ck.solve_lower(L, eye), ck.solve_lower_plain(L, eye))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n", CRQD)
+def test_indefinite_blocks_give_the_plain_nan(card, nb, n):
+    """Half the blocks negative definite (the ladder's failing rungs): no
+    error, every one of their factors non-finite where the plain version's
+    is, the SPD half bit for bit."""
+    H = _spd(nb, n, torch.float32, card, seed=n + 1)
+    H[: nb // 2] = -H[: nb // 2]
+    L, ref = ck.cholesky(H), ck.cholesky_plain(H)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(L), torch.isfinite(ref))
+    bad = ~torch.isfinite(L).all(dim=-1).all(dim=-1)
+    assert bad[: nb // 2].all() and not bad[nb // 2:].any()
+    assert torch.equal(L[nb // 2:], ref[nb // 2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n,K,dtype", [
+    (4, 158, 2, torch.float64), (4, 158, 145, torch.float64),
+    (128, 29, 2, torch.float32), (128, 29, 16, torch.float32),
+    (1, 541, 2, torch.float64)])
+def test_qr_back_substitution_equals_plain_on_card(card, nb, n, K, dtype):
+    """StagedQR's R_k x = g as solve_lower_t(R_k', g): R's diagonal carries
+    either sign (Householder QR). Float64 on Starship's stages (s = 158,
+    K = 2 and nb = 145: clusters), float32 on the double integrator's
+    (panels), and one 541-wide float64 factor (the one-block design)."""
+    rng = np.random.default_rng(K + n)
+    L = np.tril(rng.standard_normal((nb, n, n))) / np.sqrt(n)
+    d = (1.0 + rng.random((nb, n))) * rng.choice([-1.0, 1.0], (nb, n))
+    L[:, np.arange(n), np.arange(n)] = d
+    L = torch.as_tensor(L, dtype=dtype, device=card)
+    B = torch.randn(nb, n, K, dtype=dtype, device=card)
+    assert torch.equal(ck.solve_lower_t(L, B), ck.solve_lower_t_plain(L, B))

@@ -58,3 +58,25 @@ def test_single_matrix_and_empty_batch_pass_through():
     assert torch.equal(LU, A) and piv.shape == (5,)
     LU, piv = linalg.lu_factor(torch.zeros(0, 4, 4))
     assert LU.shape == (0, 4, 4) and piv.shape == (0, 4)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_singular_block_factors_as_lapack_does(batched):
+    """An exactly singular block (a zero pivot): no exception where
+    `torch.linalg.lu_factor` raises, the zero left on U's diagonal, and a
+    solve of inf/NaN, as LAPACK's getrf and the JAX package's lu_factor
+    give (the staged CR KKT's arrow block on the card hit this)."""
+    import jax.scipy.linalg as jsl
+
+    A = np.eye(4)
+    A[2, 2] = 0.0
+    M = torch.as_tensor(np.stack([np.eye(4), A]) if batched else A)
+    LU, piv = linalg.lu_factor(M)
+    lu_j, piv_j = jsl.lu_factor(A)
+    np.testing.assert_array_equal(LU[-1].numpy() if batched else LU.numpy(),
+                                  np.asarray(lu_j))
+    X = torch.linalg.lu_solve(LU, piv, torch.ones(M.shape[:-1] + (1,),
+                                                  dtype=torch.float64))
+    assert not torch.isfinite(X[-1] if batched else X).all()
+    if batched:
+        assert torch.equal(X[0], torch.ones(4, 1, dtype=torch.float64))

@@ -34,9 +34,12 @@ def _blocks(nb, s, dtype, device):
 
 # (nb, s, K) of the launches on the paths chip_smoke.py drives: Starship's
 # stage blocks (s=158: K=158 in the factor, 37 for the arrow, 2 in FGMRES)
-# and arrow Schur block (145); the double integrator's (29 and 16) at B=128
+# and arrow Schur block (145); the double integrator's (29 and 16) at B=128;
+# the LU stage sweep's (StagedLU: one stage a launch at B=4, its E_k/F_k
+# solve at K = s + nb, 303 on Starship and 45 on the double integrator)
 SHAPES = [(64, 158, (1, 2, 37, 158)), (32, 145, (1, 2)),
-          (2048, 29, (2, 8, 29)), (128, 16, (2,))]
+          (2048, 29, (2, 8, 29)), (128, 16, (2,)),
+          (4, 158, (1, 2, 303)), (4, 145, (1, 2)), (128, 29, (2, 45))]
 
 
 @pytest.mark.cuda
@@ -124,7 +127,8 @@ def _hard_blocks(nb, s, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("s", [1, 6, 16, 29, 32, 33, 64, 145, 158])
+@pytest.mark.parametrize("s", [1, 6, 16, 29, 32, 33, 64, 145, 158, 200,
+                               694])
 def test_lu_factor_ties_nan_and_floor_like_plain(card, dtype, s):
     M = _hard_blocks(8, s, dtype, card)
     F, P = lk.lu_factor(M)
@@ -138,9 +142,34 @@ def test_lu_factor_ties_nan_and_floor_like_plain(card, dtype, s):
 @pytest.mark.cuda
 def test_lu_factor_refuses_blocks_beyond_shared_memory(card):
     """A 200-wide float64 block (320 KB) does not fit in a block's shared
-    memory: the wrapper says so before it launches."""
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        lk.lu_factor(torch.eye(200, dtype=torch.float64, device=card)[None])
+    memory: the panel design refuses it and the wrapper takes the grid
+    design (the matrix in device memory), bit for bit as the plain
+    version, never the library."""
+    M = _blocks(1, 200, torch.float64, card)
+    need = lk._factor_shared_bytes(200, 8)
+    assert need > lk._max_shared_bytes(card.index or 0)
+    lk.reset_launch_counts()
+    F, P = lk.lu_factor(M)
+    assert lk.launch_counts()["lu_factor"] == 1
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp) and torch.equal(F, Fp)
+
+
+# the grid design (blocks beyond shared memory): one matrix over every SM,
+# a few, and more matrices than SMs (groups in rounds); the arrow Schur
+# complement of the softplus quadrotor's staged sweeps is 694 wide
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,nb", [
+    (torch.float64, 169, 1), (torch.float64, 200, 5),
+    (torch.float64, 694, 1), (torch.float64, 694, 2),
+    (torch.float32, 240, 1), (torch.float32, 240, 200),
+    (torch.float32, 694, 3)])
+def test_lu_factor_grid_equals_plain_bit_for_bit(card, dtype, s, nb):
+    M = _blocks(nb, s, dtype, card)
+    F, P = lk.lu_factor(M)
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp)
+    assert torch.equal(F, Fp)
 
 
 # the panel solve at widths around its 32-row panels and at the paths'
@@ -165,11 +194,12 @@ def test_lu_solve_equals_plain_bit_for_bit(card, dtype, nb, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("K", [2, 37])
-def test_lu_solve_floor_and_nan_like_plain(card, dtype, K):
+@pytest.mark.parametrize("s", [158, 694])     # 694 float64: the rows design
+def test_lu_solve_floor_and_nan_like_plain(card, dtype, K, s):
     """Pivots below the 1e-30 floor (either sign, and zero) are floored with
     their sign kept, and a NaN in the factor spreads as in the plain
     version; the record is any valid one (row j swaps with a row >= j)."""
-    nb, s = 4, 158
+    nb = 4
     rng = np.random.default_rng(5)
     F = torch.as_tensor(rng.standard_normal((nb, s, s)), dtype=dtype,
                         device=card)
@@ -188,10 +218,27 @@ def test_lu_solve_floor_and_nan_like_plain(card, dtype, K):
 @pytest.mark.cuda
 def test_lu_solve_refuses_panels_beyond_shared_memory(card):
     """Two staged 32-column panels of a 500-wide float64 factor (264 KB) do
-    not fit in a block's shared memory: the launch fails and says so."""
+    not fit in a block's shared memory: the panel design refuses them and
+    the launch takes the rows design, bit for bit as the plain version."""
     s = 500
     F = torch.eye(s, dtype=torch.float64, device=card)[None]
     rec = torch.arange(s, dtype=torch.int32, device=card)[None]
-    with pytest.raises(RuntimeError, match="lu_solve kernel launch failed"):
-        lk.lu_solve((F, rec), torch.ones(1, s, 2, dtype=torch.float64,
-                                         device=card))
+    B = torch.randn(1, s, 2, dtype=torch.float64, device=card)
+    X = lk.lu_solve((F, rec), B)
+    assert torch.equal(X, lk.lu_solve_plain((F, rec), B))
+
+
+# the rows design (factors whose panels do not fit in shared memory) at the
+# column counts around its 32-column blocks, with pivots and the floor
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,nb", [(torch.float64, 500, 3),
+                                        (torch.float64, 694, 1),
+                                        (torch.float64, 694, 4),
+                                        (torch.float32, 900, 2)])
+def test_lu_solve_rows_equals_plain_bit_for_bit(card, dtype, s, nb):
+    fac = lk.lu_factor(_blocks(nb, s, dtype, card))
+    gen = torch.Generator(device=card)
+    gen.manual_seed(s + nb)
+    for K in (1, 2, 31, 32, 33, 37, 65):
+        B = torch.randn(nb, s, K, dtype=dtype, device=card, generator=gen)
+        assert torch.equal(lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)), K

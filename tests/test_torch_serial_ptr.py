@@ -30,7 +30,7 @@ def _port_solver(**over):
 
 @pytest.fixture(scope="module")
 def serial_runs():
-    return refs.jax_di_ptr_dense().solve(), _port_solver()[1].solve()
+    return refs.jax_di_ptr_dense_solution(), _port_solver()[1].solve()
 
 
 def test_serial_ptr_matches_jax(serial_runs):

@@ -156,6 +156,12 @@ def jax_di_ptr_dense():
 
 
 @functools.cache
+def jax_di_ptr_dense_solution():
+    """jax_di_ptr_dense()'s serial solve (its jitted step compiles once)."""
+    return jax_di_ptr_dense().solve()
+
+
+@functools.cache
 def di_subproblem():
     """(A, b, c, const) of the JAX double-integrator PTR's first subproblem,
     at its guess, as numpy arrays (the assembly jitted: eagerly it takes ten
