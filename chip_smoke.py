@@ -80,6 +80,25 @@ non-zero; nothing is caught and passed over):
   conic_parser: GEOM programs (n = 2, 3, 4, 5, 7 and AM-GM) and the four
      closed-form KKT sensitivities (parser/variation.py) in float64 on the
      card, held to their closed forms;
+  parallel: scenario batches over torch.distributed at bench.py's double
+     integrator (B=128, float32, 10 iterations), solve_batched_collective
+     on "staged_crpl" and solve_batched_sharded on the dense Schur KKT: at
+     world 1 (an NCCL group on a FileStore in the worker) each equal to
+     solve_batched on the same scenarios; at world 2 (two spawned gloo
+     ranks, both on the one card) 128/128 feasible, equal to solve_batched
+     on the batch's two halves, the collective's J_aug within a relative
+     1e-4 of world 1 (the sharded Schur run's distance recorded), the
+     vote's outer_iters the largest iteration count and total_iters their
+     sum; the ranks' launch shapes come back through files for the
+     kernels phase;
+  native_ipm: the host C++ IPM (native.py, built with g++ from
+     native/ipm.cpp at first use) beside the card's IPM on the parser's
+     programs, the LCvx double integrator and an infeasible LP (float64):
+     statuses equal, objectives within 1e-6, primal within 1e-5, duals
+     within 1e-4, the LP PRIMAL_INFEASIBLE on both;
+  checkpoint: a serial float64 double-integrator solve on the card saved
+     with save_solution, loaded, and resumed by PTR.solve(warm=) on the
+     card: the same status, the cost within a relative 1e-6;
   kernels: every kernel against its plain PyTorch version at every
      (kernel, dtype, n, K) the phases above launched it with, at the
      group's smallest and largest batch (LU: identical pivot records; all:
@@ -95,7 +114,7 @@ non-zero; nothing is caught and passed over):
   profile (not default): the main path's first SCP step split by layer on
      the host clock, and three windows of ten of its IPM loops under
      torch.profiler for the device's busy share and its busiest kernels.
-The path phases run in three worker processes side by side on the card
+The path phases run in four worker processes side by side on the card
 (--workers; 1 runs them one after another in this process), shared out by
 their walls in PHASE_S: the paths are host-bound, so this keeps the whole
 run well inside its time limit; each phase's launch counts and shapes are
@@ -796,11 +815,14 @@ def _rendezvous(torch, model, N, rungs):
     """(a solver built for inspection, the solve) of the planar or the 3-D
     rendezvous model at N nodes and `rungs` homotopy rungs, float64 on the
     card."""
-    from scptoolbox_torch.models import rendezvous_3d as r3
-    from scptoolbox_torch.models import rendezvous_planar as rp
+    from importlib import import_module
+
     from scptoolbox_torch.ops.discretize import DiscretizationType
     from scptoolbox_torch.solvers import ptr
 
+    # the models package re-exports functions under the module names
+    r3 = import_module("scptoolbox_torch.models.rendezvous_3d")
+    rp = import_module("scptoolbox_torch.models.rendezvous_planar")
     pars = ptr.PTRParameters(N=N, Nsub=10,
                              disc_method=DiscretizationType.IMPULSE)
     f64 = dict(dtype=torch.float64)
@@ -1484,17 +1506,18 @@ def phase_quadrotor_gusto_softplus_staged(torch, lk, ck):
     return rec, shapes
 
 
-def phase_conic_parser(torch, lk, ck):
-    """The parser's GEOM programs (tests/test_cones.py:158-200: max t with
-    geomean(x) >= t at fixed x for n = 2, 3, 4, 5, 7, and AM-GM at n = 5)
-    and the four closed-form sensitivities of tests/test_variation.py, as
-    ConicPrograms in float64 on the card (the dense Schur KKT's Cholesky
-    ladder), held to their closed forms at those tests' tolerances."""
+C_BALL, A_PLANE = np.asarray([3.0, -4.0]), np.asarray([1.0, 2.0, -1.0])
+
+
+def _parser_programs(torch, device="cuda"):
+    """Builders of the conic parser's programs in float64 on `device`:
+    the GEOM programs of tests/test_cones.py:158-200 (max t with
+    geomean(x) >= t at fixed x; AM-GM) and the parametric programs of
+    tests/test_variation.py (a bound, a ball, a plane)."""
     from scptoolbox_torch.parser.problem import geom, nonpos, soc, zero
     from scptoolbox_torch.parser.program import ConicProgram
-    from scptoolbox_torch.parser.variation import variation
 
-    f64 = dict(dtype=torch.float64, device="cuda")
+    f64 = dict(dtype=torch.float64, device=device)
     T = lambda a: torch.as_tensor(np.asarray(a), **f64)
 
     def geom_program(n, xval):
@@ -1525,15 +1548,13 @@ def phase_conic_parser(torch, lk, ck):
         prg.build()
         return prg
 
-    c_ball, a_plane = np.asarray([3.0, -4.0]), np.asarray([1.0, 2.0, -1.0])
-
     def ball():
         prg = ConicProgram(**f64)
         x = prg.variable("x", 2)
         th = prg.parameter("theta", 2.0)
         prg.add_constraint("ball", lambda xv, t: [soc(torch.cat(
             [t.reshape(1), xv]))], (x, th))
-        prg.add_cost(lambda xv: (T(c_ball) * xv).sum(), (x,))
+        prg.add_cost(lambda xv: (T(C_BALL) * xv).sum(), (x,))
         prg.build()
         return prg
 
@@ -1542,10 +1563,26 @@ def phase_conic_parser(torch, lk, ck):
         x = prg.variable("x", 3)
         th = prg.parameter("theta", 4.0)
         prg.add_constraint("plane", lambda xv, t: [zero(
-            ((T(a_plane) * xv).sum() - t).reshape(1))], (x, th))
+            ((T(A_PLANE) * xv).sum() - t).reshape(1))], (x, th))
         prg.add_cost(lambda xv: (xv * xv).sum(), (x,))
         prg.build()
         return prg
+
+    return dict(geom=geom_program, am_gm=am_gm, bound=bound, ball=ball,
+                plane=plane)
+
+
+def phase_conic_parser(torch, lk, ck):
+    """The parser's GEOM programs (tests/test_cones.py:158-200: max t with
+    geomean(x) >= t at fixed x for n = 2, 3, 4, 5, 7, and AM-GM at n = 5)
+    and the four closed-form sensitivities of tests/test_variation.py, as
+    ConicPrograms in float64 on the card (the dense Schur KKT's Cholesky
+    ladder), held to their closed forms at those tests' tolerances."""
+    from scptoolbox_torch.parser.variation import variation
+
+    progs = _parser_programs(torch)
+    geom_program, am_gm, bound, ball, plane = (
+        progs[k] for k in ("geom", "am_gm", "bound", "ball", "plane"))
 
     def run():
         out = {}
@@ -1562,8 +1599,8 @@ def phase_conic_parser(torch, lk, ck):
         for name, build, theta, dx in (
                 ("active_bound", lambda: bound(3.0), 3.0, [1.0]),
                 ("inactive_bound", lambda: bound(1.0), 1.0, [0.0]),
-                ("soc_radius", ball, 2.0, -c_ball / 5.0),
-                ("equality_rhs", plane, 4.0, a_plane / 6.0)):
+                ("soc_radius", ball, 2.0, -C_BALL / 5.0),
+                ("equality_rhs", plane, 4.0, A_PLANE / 6.0)):
             prg = build()
             sol = prg.solve()
             d = variation(prg, sol, {"theta": theta}).solve({"theta": 1.0})
@@ -1586,6 +1623,379 @@ def phase_conic_parser(torch, lk, ck):
                            atol=tol), (name, out[name])
     assert _ladder_launched(launches), launches
     return rec, {"conic_parser": shapes}
+
+
+
+def _random_cone_problem(rng, n, nz, nl, socs):
+    """A feasible, bounded conic problem (A, b, c, (nz, nl, socs)) with a
+    known interior point (tests/test_native.py:24-48)."""
+    m = nz + nl + sum(socs)
+    A = rng.standard_normal((m, n))
+    x0 = rng.standard_normal(n)
+
+    def interior(first):
+        v = np.zeros(m)
+        v[:nz] = first
+        v[nz:nz + nl] = np.abs(rng.standard_normal(nl)) + 0.5
+        off = nz + nl
+        for d in socs:
+            w = rng.standard_normal(d - 1) * 0.2
+            v[off] = np.linalg.norm(w) + 1.0
+            v[off + 1:off + d] = w
+            off += d
+        return v
+
+    b = A @ x0 + interior(0.0)
+    z0 = interior(rng.standard_normal(nz))
+    return A, b, -A.T @ z0, (nz, nl, tuple(socs))
+
+
+def _native_cases(torch, device="cuda"):
+    """{name: (device solve, native solve)} of the native_ipm phase, float64
+    on `device`, each solve returning (status, iters, obj, x, z) in numpy:
+    the random LP / SOCP / mixed problems of tests/test_native.py:51-56
+    (ops/ipm.py `solve` against native.solve, tol 1e-9); the conic
+    parser's GEOM programs at n = 2-7 and its three parametric programs,
+    the LCvx double integrator at both parameter choices (N=50) and one
+    infeasible LP (x >= 1, x <= -1), as ConicPrograms (solve() against
+    solve(backend="native"); x their variables, z their constraints'
+    duals). AM-GM is left out: its objective is flat to second order at
+    the optimum, so at the IPM's tolerance x is fixed only to ~sqrt(tol)
+    (both solvers 4e-5 from x = 1 on the CPU)."""
+    from scptoolbox_torch import native
+    from scptoolbox_torch.models import double_integrator_lcvx as dil
+    from scptoolbox_torch.ops import ipm
+    from scptoolbox_torch.ops.cones import ConeSpec
+    from scptoolbox_torch.parser.problem import nonpos
+    from scptoolbox_torch.parser.program import ConicProgram
+
+    h = lambda a: a.detach().cpu().numpy()
+    cases = {}
+    for seed, n, nz, nl, socs in ((0, 6, 0, 10, ()), (1, 8, 3, 6, (4,)),
+                                  (2, 10, 2, 5, (3, 5)),
+                                  (3, 5, 0, 0, (4, 3))):
+        A, b, c, (nz, nl, socs) = _random_cone_problem(
+            np.random.default_rng(seed), n, nz, nl, socs)
+        spec = ConeSpec(nz=nz, nl=nl, socs=socs)
+        T = [torch.as_tensor(a, dtype=torch.float64, device=device)
+             for a in (A, b, c)]
+
+        def dev(T=T, spec=spec):
+            sol = ipm.solve(*T, spec, tol=1e-9, max_iter=60)
+            return (int(sol.status), int(sol.iters), float(sol.obj),
+                    h(sol.x), h(sol.z))
+
+        def nat(A=A, b=b, c=c, spec=spec):
+            sol = native.solve(A, b, c, spec, tol=1e-9, max_iter=60)
+            return int(sol.status), sol.iters, sol.obj, sol.x, sol.z
+
+        cases[f"random_{seed}"] = (dev, nat)
+
+    pp = _parser_programs(torch, device)
+    progs = {f"geom_{n}": pp["geom"](n, 0.5 + np.random.default_rng(n)
+                                     .random(n)) for n in (2, 3, 4, 5, 7)}
+    progs.update(bound=pp["bound"](3.0), ball=pp["ball"](),
+                 plane=pp["plane"]())
+    for choice in (1, 2):
+        progs[f"lcvx_di_{choice}"] = dil.build_program(
+            dil.LCvxDoubleIntegratorParameters(choice=choice),
+            torch.float64, device)
+    lp = ConicProgram(dtype=torch.float64, device=device)
+    x = lp.variable("x", 1)
+    lp.add_constraint("above", lambda xv: [nonpos(1.0 - xv)], (x,))
+    lp.add_constraint("below", lambda xv: [nonpos(xv + 1.0)], (x,))
+    lp.add_cost(lambda xv: xv.sum(), (x,))
+    lp.build()
+    progs["infeasible_lp"] = lp
+    cat = lambda d: np.concatenate([h(v).ravel() for v in d.values()])
+
+    def program(prg, **kw):
+        sol = prg.solve(**kw)
+        return (int(sol.status), int(sol.iters), float(sol.obj),
+                cat(sol.values), cat(sol.duals))
+
+    for name, prg in progs.items():
+        cases[name] = (lambda prg=prg: program(prg),
+                       lambda prg=prg: program(prg, backend="native"))
+    return cases
+
+
+def _native_check(torch, cases, sync):
+    """Each case's device and native solves: {name: record}, held as
+    tests/test_native.py:63-68 holds the pair (status equal, objective
+    within 1e-6, x within 1e-5, z within 1e-4 relative / 1e-5 absolute);
+    the infeasible LP PRIMAL_INFEASIBLE on both."""
+    from scptoolbox_torch.ops.ipm import IPMStatus
+
+    out = {}
+    for name, (dev, nat) in cases.items():
+        t0 = time.perf_counter()
+        sd, itd, od, xd, zd = dev()
+        sync()
+        t1 = time.perf_counter()
+        sn, itn, on, xn, zn = nat()
+        t2 = time.perf_counter()
+        r = dict(status=sd, native_status=sn, iters=itd, native_iters=itn,
+                 device_s=t1 - t0, native_s=t2 - t1)
+        if name == "infeasible_lp":
+            assert sd == sn == int(IPMStatus.PRIMAL_INFEASIBLE), (name, r)
+        else:
+            r.update(obj=od, native_obj=on, obj_abs_dev=abs(od - on),
+                     x_max_abs_dev=float(np.max(np.abs(xd - xn))),
+                     z_max_abs_dev=float(np.max(np.abs(zd - zn))))
+            assert sd == sn, (name, r)
+            assert r["obj_abs_dev"] <= 1e-6, (name, r)
+            assert np.allclose(xn, xd, rtol=1e-5, atol=1e-5), (name, r)
+            assert np.allclose(zn, zd, rtol=1e-4, atol=1e-5), (name, r)
+        out[name] = r
+    return out
+
+
+def phase_native_ipm(torch, lk, ck):
+    """The host C++ IPM (scptoolbox_torch/native.py, built with g++ from
+    native/ipm.cpp at first use) beside the card's IPM (the dense Schur
+    KKT's Cholesky ladder) in float64 on _native_cases: the random cone
+    problems of tests/test_native.py, the conic parser's programs, the
+    LCvx double integrator and an infeasible LP."""
+    from scptoolbox_torch import native
+
+    t0 = time.perf_counter()
+    assert native.available(), native.build_error()
+    build_s = time.perf_counter() - t0
+    cases = _native_cases(torch)
+    out, wall, launches, shapes = _drive(
+        torch, lk, ck, lambda: _native_check(torch, cases,
+                                             torch.cuda.synchronize))
+    rec = dict(out, build_s=build_s, wall_s=wall, launches=launches)
+    log("[native_ipm] " + json.dumps(rec))
+    assert _ladder_launched(launches), launches
+    return rec, {"native_ipm": shapes}
+
+
+def phase_checkpoint(torch, lk, ck):
+    """bench.py's double integrator (N=31, Nsub=15) solved serially in
+    float64 on the card (the dense Schur ladder), saved with
+    save_solution, loaded, and resumed by PTR.solve(warm=) on the card:
+    the resume reaches the same status, its cost within a relative 1e-6 of
+    the saved one."""
+    import tempfile
+    from importlib import import_module
+
+    from scptoolbox_torch.solvers import ptr
+    from scptoolbox_torch.utils.checkpoint import (load_solution,
+                                                   save_solution)
+
+    di = import_module("scptoolbox_torch.models.double_integrator")
+    solver = ptr.PTR(di.double_integrator(di.DoubleIntegratorParameters(
+        drag=True, g=0.01, s=30.0)), ptr.PTRParameters(**DI_PARS,
+                                                       iter_max=15),
+        dtype=torch.float64, device="cuda")
+
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "double_integrator.npz")
+            sol = solver.solve()
+            save_solution(path, sol)
+            size = os.path.getsize(path)
+            back = load_solution(path)
+            return sol, back, solver.solve(warm=back), size
+
+    (sol, back, res, size), wall, launches, shapes = _drive(
+        torch, lk, ck, run)
+    rec = dict(status=str(sol.status), iterations=sol.iterations,
+               cost=sol.cost, file_bytes=size,
+               resumed_status=str(res.status),
+               resumed_iterations=res.iterations, resumed_cost=res.cost,
+               cost_rel_dev=abs(res.cost / sol.cost - 1.0), wall_s=wall,
+               launches=launches)
+    log("[checkpoint] " + json.dumps(rec))
+    assert back.status == sol.status and back.cost == sol.cost, rec
+    assert np.array_equal(back.xd, sol.xd) and len(back.history) == len(
+        sol.history), rec
+    assert res.status == sol.status, rec
+    assert rec["cost_rel_dev"] <= 1e-6, rec
+    assert _ladder_launched(launches), launches
+    return rec, {"checkpoint": shapes}
+
+
+PARALLEL_B, PARALLEL_ITERS = 128, 10
+
+
+def _parallel_runs(torch, lk, ck, device="cuda", B=PARALLEL_B):
+    """The parallel phase's two runs on the current world: the collective
+    solve on "staged_crpl" and the sharded solve on the dense Schur KKT,
+    bench.py's double integrator (float32) from _scenario_batch's B
+    guesses with PARALLEL_ITERS iterations. Returns (solvers, batches,
+    results, records, shapes), the records' numbers those of this rank."""
+    from importlib import import_module
+
+    from scptoolbox_torch.config import SCPStatus
+    from scptoolbox_torch.parallel import (solve_batched_collective,
+                                           solve_batched_sharded)
+    from scptoolbox_torch.solvers import ptr
+
+    di = import_module("scptoolbox_torch.models.double_integrator")
+    pbm = di.double_integrator(di.DoubleIntegratorParameters(
+        drag=True, g=0.01, s=30.0))
+    solvers, batches, results, recs, shapes = {}, {}, {}, {}, {}
+    for tag, kkt, fn in (("collective", "staged_crpl",
+                          solve_batched_collective),
+                         ("sharded", None, solve_batched_sharded)):
+        solver = ptr.PTR(pbm, ptr.PTRParameters(**DI_PARS, kkt_method=kkt),
+                         dtype=torch.float32, device=device)
+        batch = _scenario_batch(torch, solver, B, 0.1)
+        res, wall, launches, shp = _drive(
+            torch, lk, ck, lambda: fn(solver, *batch, PARALLEL_ITERS))
+        if tag == "collective":
+            iters = res.iters.cpu().numpy()
+            r = dict(solved=int((res.status == int(SCPStatus.SOLVED)).sum()),
+                     n_feasible=res.n_feasible, outer_iters=res.outer_iters,
+                     total_iters=res.total_iters,
+                     stopped_early=res.outer_iters < PARALLEL_ITERS,
+                     max_iters=int(iters.max()), sum_iters=int(iters.sum()))
+        else:
+            r = dict(n_feasible=res.n_feasible, scp_steps=len(res.traces),
+                     stopped_early=len(res.traces) < PARALLEL_ITERS)
+        recs[tag] = dict(r, B=B, kkt=kkt or "schur", wall_s=wall,
+                         launches=launches)
+        solvers[tag], batches[tag], results[tag], shapes[tag] = (
+            solver, batch, res, shp)
+    return solvers, batches, results, recs, shapes
+
+
+def _parallel_rank(rank, world, store_file, out_dir):
+    """A rank of the parallel phase's world of two: gloo on a FileStore,
+    every rank on cuda:0 (NCCL refuses two ranks on one device); writes
+    its records, J_aug, launch counts and shapes to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    _precise(torch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_file, world),
+                            world_size=world, rank=rank)
+    try:
+        from scptoolbox_torch.ops import chol_kernels as ck
+        from scptoolbox_torch.ops import lu_kernels as lk
+
+        _, _, results, recs, shapes = _parallel_runs(torch, lk, ck)
+        out = dict(recs=recs, J_aug={
+            tag: res.J_aug.cpu().tolist() for tag, res in results.items()},
+            shapes={tag: [[list(k), c] for k, c in shp.items()]
+                    for tag, shp in shapes.items()})
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_traces(torch, a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x[k].nan_to_num(), y[k].nan_to_num())
+        and torch.equal(x[k].isnan(), y[k].isnan()) if x[k].is_floating_point()
+        else torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def phase_parallel(torch, lk, ck):
+    """Scenario batches over torch.distributed (scptoolbox_torch/parallel/)
+    at bench.py's double integrator, B=128, float32, 10 iterations: the
+    collective solve on "staged_crpl" (the LU kernels) and the sharded
+    solve on the dense Schur KKT (the Cholesky ladder). World 1: an NCCL
+    group in this process on a FileStore; each run equal to
+    solve_batched on the same 128 scenarios (J_aug, iterations and
+    statuses; the sharded traces too). World 2: two spawned ranks on gloo,
+    both on the one card, each solving 64 scenarios: 128/128 feasible,
+    every rank's gathered J_aug equal to solve_batched on the two halves
+    of the batch (the batches a rank's kernels and reductions see), the
+    vote's outer_iters the largest iteration count and total_iters their
+    sum; the collective's J_aug within a relative 1e-4 of world 1. The
+    sharded run's distance from world 1 is recorded, not held: on the
+    float32 Schur ladder a scenario's last bits depend on the batch it is
+    solved in (its GEMMs and reductions may take other kernels at another
+    batch size), and its SCP steps carry such a change into the iterate,
+    up to 2% of J_aug after 10 steps; the LU path repeats world 1 to the
+    bit. Walls, SOLVED counts and whether the vote stopped the fleet early
+    are recorded."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    rec, shapes_by_path = {}, {}
+    tmp = tempfile.mkdtemp()
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            world_size=1, rank=0)
+        try:
+            solvers, batches, w1, recs, shapes = _parallel_runs(torch, lk,
+                                                                ck)
+        finally:
+            dist.destroy_process_group()
+        for tag in ("collective", "sharded"):
+            t0 = time.perf_counter()
+            ref = solvers[tag].solve_batched(*batches[tag], PARALLEL_ITERS)
+            torch.cuda.synchronize()
+            recs[tag]["solve_batched_wall_s"] = time.perf_counter() - t0
+            res = w1[tag]
+            if tag == "collective":
+                same = all(torch.equal(getattr(res, k), ref[k])
+                           for k in ("J_aug", "iters", "status"))
+            else:
+                same = (all(torch.equal(getattr(res, k), ref[k])
+                            for k in ("x", "J_aug", "feas"))
+                        and _same_traces(torch, res.traces, ref["traces"]))
+            recs[tag]["equal_to_solve_batched"] = same
+            rec[f"{tag}_w1"] = recs[tag]
+            shapes_by_path[f"parallel_{tag}_w1"] = shapes[tag]
+
+        half = PARALLEL_B // 2
+        J_halves = {tag: torch.cat([solvers[tag].solve_batched(
+            *(a[i:i + half] for a in batches[tag]), PARALLEL_ITERS)["J_aug"]
+            for i in (0, half)]).cpu().tolist() for tag in solvers}
+        t0 = time.perf_counter()
+        mp.start_processes(_parallel_rank, args=(2, os.path.join(
+            tmp, "gloo"), tmp), nprocs=2, start_method="spawn")
+        rec["spawn_wall_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for tag in ("collective", "sharded"):
+            J1 = w1[tag].J_aug.cpu().numpy()
+            r2 = dict(ranks[0]["recs"][tag])
+            r2["rank_wall_s"] = [rk["recs"][tag]["wall_s"] for rk in ranks]
+            r2["launches"] = dict(sum((collections.Counter(
+                rk["recs"][tag]["launches"]) for rk in ranks),
+                collections.Counter()))
+            r2["J_aug_max_rel_dev_w1"] = max(float(np.max(np.abs(
+                np.asarray(rk["J_aug"][tag]) / J1 - 1.0))) for rk in ranks)
+            r2["equal_to_halves"] = all(rk["J_aug"][tag] == J_halves[tag]
+                                        for rk in ranks)
+            rec[f"{tag}_w2"] = r2
+            shp = collections.Counter()
+            for rk in ranks:
+                shp.update({tuple(k): c for k, c in rk["shapes"][tag]})
+            shapes_by_path[f"parallel_{tag}_w2"] = shp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[parallel] " + json.dumps(rec))
+    for w in ("w1", "w2"):
+        c, s_ = rec[f"collective_{w}"], rec[f"sharded_{w}"]
+        assert c["launches"]["lu_factor"] > 0, (w, c["launches"])
+        assert c["launches"]["lu_solve"] > 0, (w, c["launches"])
+        assert _ladder_launched(s_["launches"]), (w, s_["launches"])
+        assert c["n_feasible"] == s_["n_feasible"] == PARALLEL_B, (w, rec)
+        assert c["outer_iters"] == c["max_iters"], (w, c)
+        assert c["total_iters"] == c["sum_iters"], (w, c)
+    for tag in ("collective", "sharded"):
+        assert rec[f"{tag}_w1"]["equal_to_solve_batched"], (tag, rec)
+        assert rec[f"{tag}_w2"]["equal_to_halves"], (tag, rec)
+    assert rec["collective_w2"]["J_aug_max_rel_dev_w1"] <= 1e-4, rec
+    return rec, shapes_by_path
 
 
 def phase_gmres(torch, lk, ck, B=4):
@@ -1794,7 +2204,10 @@ PATHS = (("starship", phase_starship),
          ("starship_crqd_kkt", phase_starship_crqd_kkt),
          ("quadrotor_gusto_softplus_staged",
           phase_quadrotor_gusto_softplus_staged),
-         ("conic_parser", phase_conic_parser))
+         ("conic_parser", phase_conic_parser),
+         ("parallel", phase_parallel),
+         ("native_ipm", phase_native_ipm),
+         ("checkpoint", phase_checkpoint))
 OPT_IN_PATHS = (("rendezvous_full", phase_rendezvous_full),)
 DEFAULT = ",".join([name for name, _ in PATHS] + ["kernels"])
 
@@ -1815,7 +2228,9 @@ PHASE_S = {"starship": 161.7, "starship_f64": 51.8,
            # PR 11's phases: their walls side by side over three workers
            "starship_f64_staged_lu": 105.0, "starship_f64_staged_qr": 90.0,
            "double_integrator_staged": 48.6, "starship_crqd_kkt": 23.9,
-           "quadrotor_gusto_softplus_staged": 140.0, "conic_parser": 10.0}
+           "quadrotor_gusto_softplus_staged": 140.0, "conic_parser": 10.0,
+           # the three phases below: walls side by side over three workers
+           "parallel": 146.7, "native_ipm": 10.0, "checkpoint": 5.0}
 
 
 def _precise(torch):
@@ -1907,7 +2322,7 @@ def main():
                     help="comma-separated phases to run; also "
                     "rendezvous_full, gmres and profile, which are not run "
                     "by default")
-    ap.add_argument("--workers", type=int, default=3,
+    ap.add_argument("--workers", type=int, default=4,
                     help="processes the path phases are shared over (1: "
                     "one after another in this process, each wall alone)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)

@@ -1,13 +1,14 @@
 """Direct conic-program modeling layer: `ConicProgram` on the PyTorch IPM.
 
-Counterpart of `scptoolbox_tpu/parser/program.py:88` (the host C++
-`backend="native"` waits), exponential-cone and GEOM constraints included
-(:300, :405), with the introspection accessors `constraints`, `variables`,
-`parameters`, `describe` and `__repr__` (:310-365). Constraints are
-PyTorch functions of the variable blocks (and parameters) returning lists
-of ConeCon, affine in the variables; costs are affine or convex quadratic.
-Their structure is extracted exactly by `torch.func.jacfwd` / `hessian`,
-and the program lowers to one dense (A, b, c) solved by ops.ipm.
+Counterpart of `scptoolbox_tpu/parser/program.py:88`, exponential-cone
+and GEOM constraints included (:300, :405), with the introspection
+accessors `constraints`, `variables`, `parameters`, `describe` and
+`__repr__` (:310-365) and the host C++ IPM as `solve(backend="native")`
+(:368-412). Constraints are PyTorch functions of the variable blocks (and
+parameters) returning lists of ConeCon, affine in the variables; costs are
+affine or convex quadratic. Their structure is extracted exactly by
+`torch.func.jacfwd` / `hessian`, and the program lowers to one dense
+(A, b, c) solved by ops.ipm.
 """
 
 from __future__ import annotations
@@ -288,14 +289,49 @@ class ConicProgram:
         return self.describe()
 
     def solve(self, tol: float = 1e-8, max_iter: int = 60,
-              **params) -> ProgramSolution:
-        """Solve with the given parameter values (defaults otherwise)."""
+              backend: str = "torch", **params) -> ProgramSolution:
+        """Solve with the given parameter values (defaults otherwise).
+
+        backend="torch" runs the IPM of ops/ipm.py on the program's device;
+        backend="native" the host C++ IPM (scptoolbox_torch/native.py) in
+        float64, for small programs where a device round trip costs more
+        than the solve. The native backend raises where its library cannot
+        be built (no g++) and on exponential-cone programs; any other
+        backend raises."""
         assert self._built, "call build() first"
+        if backend not in ("torch", "native"):
+            raise ValueError(f"unknown backend {backend!r}: 'torch' or "
+                             "'native'")
         pvals = {name: self._t(params.get(name, default))
                  for name, (_, default) in self._pars.items()}
         A, b, c, const = self._assemble(pvals)
+        if backend == "native":
+            return self._solve_native(A, b, c, const, tol, max_iter)
         sol = ipm.solve(A, b, c, self.spec, tol=tol, max_iter=max_iter)
-        d = self._S_full * sol.x + self._c_full
+        return self._solution(sol.x, sol.z, sol.obj + const, sol.status,
+                              sol.iters)
+
+    def _solve_native(self, A, b, c, const, tol, max_iter
+                      ) -> ProgramSolution:
+        """The assembled program on the host C++ IPM; the solution comes
+        back as tensors on the program's device and dtype."""
+        from scptoolbox_torch import native
+
+        if not native.available():
+            raise RuntimeError("the native backend cannot be built: "
+                               f"{native.build_error()}")
+        nsol = native.solve(A, b, c, self.spec, tol=tol, max_iter=max_iter)
+        return self._solution(
+            self._t(nsol.x), self._t(nsol.z),
+            self._t(nsol.obj) + const,
+            torch.tensor(int(nsol.status), dtype=torch.int32,
+                         device=self.device),
+            torch.tensor(nsol.iters, dtype=torch.int32, device=self.device))
+
+    def _solution(self, x, z, obj, status, iters) -> ProgramSolution:
+        """Values and duals by name from the scaled solution x and the
+        duals z."""
+        d = self._S_full * x + self._c_full
         values = {name: d[self.layout.sl(name)].reshape(v.shape)
                   for name, v in self._vars.items()}
         duals = {}
@@ -303,12 +339,11 @@ class ConicProgram:
             for i, po in enumerate(con.posters):
                 nm = f"{con.name}{i}"
                 if po.kind in (ConeKind.ZERO, ConeKind.NONPOS):
-                    duals[nm] = sol.z[torch.as_tensor(
+                    duals[nm] = z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)]
                 elif po.kind in (ConeKind.SOC, ConeKind.GEOM,
                                  ConeKind.EXP):
-                    duals[nm] = sol.z[torch.as_tensor(
+                    duals[nm] = z[torch.as_tensor(
                         self.plan.rows(nm), device=self.device)].reshape(-1)
-        return ProgramSolution(values=values, obj=sol.obj + const,
-                               status=sol.status, duals=duals, x=d, z=sol.z,
-                               iters=sol.iters)
+        return ProgramSolution(values=values, obj=obj, status=status,
+                               duals=duals, x=d, z=z, iters=iters)

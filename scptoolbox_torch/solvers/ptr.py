@@ -419,69 +419,97 @@ class PTR:
         defect_norm, status (SCPStatus codes), iters, ipm_status, plus
         per-iteration traces (deviation, improv_rel, J_aug, feas, active,
         ipm_iters; NaN, False or 0 for a frozen scenario)."""
-        pars = self.pars
-        consts = self.consts
+        state = self._batched_start(bx, bu, bp)
+        for it in range(n_iters):
+            if not self._batched_iteration(state, it):
+                break
+        return self._batched_result(state)
+
+    def _batched_start(self, bx, bu, bp):
+        """The batched loop's state before its first iteration: copies of
+        the references, their discretization, and every scenario active."""
         B = bx.shape[0]
         dev = self.device
         x, u, p = bx.clone(), bu.clone(), bp.clone()
-        dltv = self._discretize(x, u, p, consts)
-        J = torch.full((B,), math.inf, dtype=self.dtype, device=dev)
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        status = torch.full((B,), int(SCPStatus.FAILED), dtype=torch.int32,
-                            device=dev)
-        iters = torch.zeros(B, dtype=torch.int32, device=dev)
-        ipmst = torch.full((B,), int(ipm.IPMStatus.MAX_ITER),
-                           dtype=torch.int32, device=dev)
-        traces = []
-        for it in range(n_iters):
-            if bool(done.all()):
-                break
-            idx = (~done).nonzero()[:, 0]
-            out = self._step_impl(x[idx], u[idx], p[idx], dltv.index(idx),
-                                  J[idx], consts)
-            finite = torch.isfinite(out["J_aug"])
-            stop = (out["feas"] & ((torch.abs(out["improv_rel"])
-                                    <= pars.eps_rel)
-                                   | (out["deviation"] <= pars.eps_abs))
-                    if it > 0 else torch.zeros_like(finite))
-            newly = stop | ~finite
-            adv = idx[finite]
-            x[adv] = out["x"][finite]
-            u[adv] = out["u"][finite]
-            p[adv] = out["p"][finite]
-            dltv = type(dltv)(*(
-                a.index_copy(0, adv, b_[finite])
-                for a, b_ in zip(dltv, out["dltv"])))
-            J[adv] = out["J_aug"][finite]
-            ipmst[adv] = out["ipm_status"][finite]
-            status[idx[newly]] = torch.where(
-                stop & finite, int(SCPStatus.SOLVED),
-                int(SCPStatus.FAILED)).to(torch.int32)[newly]
-            iters[idx] = it + 1
-            done[idx[newly]] = True
-            tr = {k: torch.full((B,), math.nan, dtype=self.dtype, device=dev)
-                  for k in ("deviation", "improv_rel", "J_aug")}
-            for k in tr:
-                tr[k][idx] = out[k]
-            tr["feas"] = torch.zeros(B, dtype=torch.bool, device=dev)
-            tr["feas"][idx] = out["feas"]
-            tr["active"] = torch.zeros(B, dtype=torch.bool, device=dev)
-            tr["active"][idx] = True
-            tr["ipm_iters"] = torch.zeros(B, dtype=torch.int32, device=dev)
-            tr["ipm_iters"][idx] = out["ipm_iters"]
-            traces.append(tr)
+        i32 = lambda v: torch.full((B,), int(v), dtype=torch.int32,
+                                   device=dev)
+        return dict(
+            x=x, u=u, p=p, dltv=self._discretize(x, u, p, self.consts),
+            J=torch.full((B,), math.inf, dtype=self.dtype, device=dev),
+            done=torch.zeros(B, dtype=torch.bool, device=dev),
+            status=i32(SCPStatus.FAILED), iters=i32(0),
+            ipmst=i32(ipm.IPMStatus.MAX_ITER), traces=[])
+
+    def _batched_iteration(self, state, it: int) -> bool:
+        """Iteration `it` of the batched loop on `state` (from
+        _batched_start): steps the active scenarios, applies the serial
+        stopping rule, freezes the scenarios that stopped and appends the
+        iteration's trace. Does nothing, and returns False, when every
+        scenario of `state` has stopped."""
+        pars = self.pars
+        done = state["done"]
+        if bool(done.all()):
+            return False
+        x, u, p, dltv, J = (state[k] for k in ("x", "u", "p", "dltv", "J"))
+        idx = (~done).nonzero()[:, 0]
+        out = self._step_impl(x[idx], u[idx], p[idx], dltv.index(idx),
+                              J[idx], self.consts)
+        finite = torch.isfinite(out["J_aug"])
+        stop = (out["feas"] & ((torch.abs(out["improv_rel"])
+                                <= pars.eps_rel)
+                               | (out["deviation"] <= pars.eps_abs))
+                if it > 0 else torch.zeros_like(finite))
+        newly = stop | ~finite
+        adv = idx[finite]
+        x[adv] = out["x"][finite]
+        u[adv] = out["u"][finite]
+        p[adv] = out["p"][finite]
+        state["dltv"] = type(dltv)(*(
+            a.index_copy(0, adv, b_[finite])
+            for a, b_ in zip(dltv, out["dltv"])))
+        J[adv] = out["J_aug"][finite]
+        state["ipmst"][adv] = out["ipm_status"][finite]
+        state["status"][idx[newly]] = torch.where(
+            stop & finite, int(SCPStatus.SOLVED),
+            int(SCPStatus.FAILED)).to(torch.int32)[newly]
+        state["iters"][idx] = it + 1
+        done[idx[newly]] = True
+        tr = self.frozen_trace(done.shape[0])
+        for k in ("deviation", "improv_rel", "J_aug", "feas", "ipm_iters"):
+            tr[k][idx] = out[k]
+        tr["active"][idx] = True
+        state["traces"].append(tr)
+        return True
+
+    def frozen_trace(self, B: int):
+        """A batched trace entry in which all B scenarios are frozen: NaN,
+        False or 0."""
+        dev = self.device
+        nan = lambda: torch.full((B,), math.nan, dtype=self.dtype,
+                                 device=dev)
+        no = lambda: torch.zeros(B, dtype=torch.bool, device=dev)
+        return dict(deviation=nan(), improv_rel=nan(), J_aug=nan(),
+                    feas=no(), active=no(),
+                    ipm_iters=torch.zeros(B, dtype=torch.int32, device=dev))
+
+    def _batched_result(self, state):
+        """solve_batched's outputs from the loop's final state: a scenario
+        still active at the end is SOLVED when its last subproblem was
+        (almost) optimal, as the serial loop's exhausted budget is."""
+        x, u, p, ipmst, status = (state[k] for k in ("x", "u", "p", "ipmst",
+                                                     "status"))
         ipm_ok = ((ipmst == int(ipm.IPMStatus.OPTIMAL))
                   | (ipmst == int(ipm.IPMStatus.ALMOST_OPTIMAL)))
-        status = torch.where(~done & ipm_ok,
+        status = torch.where(~state["done"] & ipm_ok,
                              torch.full_like(status, int(SCPStatus.SOLVED)),
                              status)
-        defect = torch.amax(torch.abs(dltv.defects / self.scaling.Sx),
-                            dim=(1, 2))
-        return dict(x=x, u=u, p=p, J_aug=J,
-                    J_orig=self.tmpl.original_cost(x, u, p, consts),
-                    feas=defect <= pars.feas_tol, defect_norm=defect,
-                    status=status, iters=iters, ipm_status=ipmst,
-                    traces=traces)
+        defect = torch.amax(torch.abs(state["dltv"].defects
+                                      / self.scaling.Sx), dim=(1, 2))
+        return dict(x=x, u=u, p=p, J_aug=state["J"],
+                    J_orig=self.tmpl.original_cost(x, u, p, self.consts),
+                    feas=defect <= self.pars.feas_tol, defect_norm=defect,
+                    status=status, iters=state["iters"], ipm_status=ipmst,
+                    traces=state["traces"])
 
 
 def solve(pbm: TrajectoryProblem, pars: PTRParameters,

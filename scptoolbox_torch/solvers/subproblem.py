@@ -1,9 +1,10 @@
 """Subproblem assembly: variable layout, cone row planning, and dense
 (A, b, c) assembly for the IPM, batched over scenarios.
 
-Counterpart of `scptoolbox_tpu/solvers/subproblem.py:33-197` (`VarLayout`,
-`RowPlan` with its exp groups :95 and their place in `freeze` :119-127,
-`Assembler` with `res_exp` :186). The structure (row/column indices) is
+Counterpart of `scptoolbox_tpu/solvers/subproblem.py` (`VarLayout` with
+`extract` :65, `RowPlan` with its exp groups :95 and their place in
+`freeze` :119-127, `Assembler` with `res_nonpos` :177 and `res_exp` :186,
+`soc_epigraph_quadratic` :198). The structure (row/column indices) is
 static numpy; the values are tensors with a leading scenario dimension B.
 
 Sign/lowering conventions (residual v affine in the decision d):
@@ -49,6 +50,13 @@ class VarLayout:
         off, shape = self._blocks[name]
         size = int(np.prod(shape)) if shape else 1
         return slice(off, off + size)
+
+    def extract(self, d: torch.Tensor, name: str) -> torch.Tensor:
+        """The block `name` of d (..., n), with the block's shape after
+        d's leading dims."""
+        off, shape = self._blocks[name]
+        size = int(np.prod(shape)) if shape else 1
+        return d[..., off:off + size].reshape(d.shape[:-1] + shape)
 
 
 class RowPlan:
@@ -163,7 +171,9 @@ class Assembler:
         self.add_A(rows, cols, J)
         self.add_b(rows, -v0)
 
-    res_nonpos = res_zero
+    def res_nonpos(self, rows, cols, J, v0) -> None:
+        self.add_A(rows, cols, J)
+        self.add_b(rows, -v0)
 
     def res_soc(self, rows, cols, J, v0) -> None:
         self.add_A(rows, cols, -J)
@@ -180,3 +190,34 @@ class Assembler:
         c_hat = self.c * S_full
         const = self.const + self.c @ c_full
         return A_hat, b_hat, c_hat, const
+
+
+def soc_epigraph_quadratic(asm: Assembler, rows, d_cols, t_col: int, H, g,
+                           c0, d0) -> None:
+    """Post rows for  t >= 0.5 (d-d0)'H(d-d0) + g'(d-d0) + c0  as one SOC.
+
+    With H = L L' (eigh, negative eigenvalues clipped to 0): tau := t -
+    lin(d) and the block [(2 tau + 1)/2, (2 tau - 1)/2, L'd] in
+    SOC(dim + 2). `rows` is a (1, dim + 2) SOC group reservation; H (dim,
+    dim), g (dim,), c0 () and d0 (dim,) may carry a leading scenario dim.
+    This is the bridging JuMP/MOI performs for quadratic objectives over
+    ECOS (the reference's QuadraticCost, src/parser/cost.jl:68-107)."""
+    dim = len(np.asarray(d_cols).reshape(-1))
+    w, V = torch.linalg.eigh(H)
+    Lt = torch.sqrt(torch.clamp(w, min=0.0))[..., :, None] * V.mT  # L'
+    # lin(d) = (g - H d0)'d + (c0 + 0.5 d0'H d0 - g'd0)
+    Hd0 = (H @ d0[..., None])[..., 0]
+    lin_g = g - Hd0
+    lin_c = c0 + 0.5 * (d0 * Hd0).sum(-1) - (g * d0).sum(-1)
+    # v[0] = tau + 0.5, v[1] = tau - 0.5, v[2:] = L'd; cols [d..., t]
+    J = torch.zeros(H.shape[:-2] + (dim + 2, dim + 1), dtype=H.dtype,
+                    device=H.device)
+    J[..., 0, :dim] = -lin_g
+    J[..., 1, :dim] = -lin_g
+    J[..., :2, dim] = 1.0
+    J[..., 2:, :dim] = Lt
+    v0 = torch.cat([torch.stack([-lin_c + 0.5, -lin_c - 0.5], -1),
+                    torch.zeros(H.shape[:-2] + (dim,), dtype=H.dtype,
+                                device=H.device)], -1)
+    cols = np.concatenate([np.asarray(d_cols).reshape(-1), [t_col]])
+    asm.res_soc(np.asarray(rows).reshape(-1), cols, J, v0)

@@ -1,11 +1,14 @@
-"""Numerical integration: one RK4 step over tuples of tensors, trapezoids.
+"""Numerical integration: RK4 over tuples of tensors, trapezoid rules.
 
-Counterpart of `scptoolbox_tpu/utils/integrate.py` (`rk4_step`, `trapz`).
+Counterpart of `scptoolbox_tpu/utils/integrate.py` (`rk4_step` :19,
+`rk4` :38, `rk4_grid` :80, `trapz` :86, `grad_trapz` :95; reference
+src/utils/helper.jl:350-591, with per-step state actions such as
+quaternion renormalization).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -39,6 +42,44 @@ def rk4_step(f: Callable, x, t, dt):
     return _axpy(dt / 6.0, ksum, x)
 
 
+def _stack(first, rest):
+    """first (...) followed by the list rest of the same, along a new
+    leading dim; field by field for a NamedTuple state."""
+    if isinstance(first, torch.Tensor):
+        return torch.stack([first] + rest)
+    return type(first)(*(_stack(a, [r[i] for r in rest])
+                         for i, a in enumerate(first)))
+
+
+def rk4(f: Callable, x0, t_grid: torch.Tensor,
+        actions: Optional[Callable] = None, full: bool = False):
+    """Integrate dx/dt = f(t, x) across t_grid (M,) with RK4 from x0 at
+    t_grid[0]. `actions(x) -> x`, when given, is applied after every step
+    (e.g. quaternion renormalization). Returns the final state, or with
+    full=True the (M, ...) trajectory. x may be a tensor or a NamedTuple
+    of tensors."""
+    t0s = t_grid[:-1]
+    dts = t_grid[1:] - t_grid[:-1]
+    x = x0
+    xs = []
+    for t, dt in zip(t0s, dts):
+        x = rk4_step(f, x, t, dt)
+        if actions is not None:
+            x = actions(x)
+        xs.append(x)
+    return _stack(x0, xs) if full else x
+
+
+def rk4_grid(f: Callable, x0, t0, t1, nsub: int, actions=None,
+             full: bool = False):
+    """RK4 over nsub equal substeps on [t0, t1], in the dtype and on the
+    device of x0."""
+    leaf = x0 if isinstance(x0, torch.Tensor) else x0[0]
+    t_grid = torch.linspace(float(t0), float(t1), nsub + 1,
+                            dtype=leaf.dtype, device=leaf.device)
+    return rk4(f, x0, t_grid, actions=actions, full=full)
+
+
 def trapz(f_grid: torch.Tensor, t_grid: torch.Tensor) -> torch.Tensor:
     """Trapezoidal quadrature of samples f_grid (M, ...) over t_grid (M,)."""
     dt = t_grid[1:] - t_grid[:-1]
@@ -46,3 +87,13 @@ def trapz(f_grid: torch.Tensor, t_grid: torch.Tensor) -> torch.Tensor:
     if mid.dim() > 1:
         dt = dt.reshape((-1,) + (1,) * (mid.dim() - 1))
     return torch.sum(mid * dt, dim=0)
+
+
+def grad_trapz(t_grid: torch.Tensor) -> torch.Tensor:
+    """Gradient of trapz with respect to the samples: the quadrature
+    weights (N,) (reference helper.jl:591)."""
+    dt = t_grid[1:] - t_grid[:-1]
+    w = torch.zeros_like(t_grid)
+    w[:-1] += dt / 2.0
+    w[1:] += dt / 2.0
+    return w

@@ -1,7 +1,8 @@
 """Exact zero- and first-order-hold discretization via the matrix
 exponential.
 
-Counterpart of `scptoolbox_tpu/utils/linsys.py` (`c2d_zoh` :19, `c2d_foh`).
+Counterpart of `scptoolbox_tpu/utils/linsys.py` (`c2d_zoh` :19, `c2d_foh`
+:35, `expm_diff` :60).
 """
 
 from __future__ import annotations
@@ -43,3 +44,13 @@ def c2d_foh(A: torch.Tensor, B: torch.Tensor, dt
     I1 = E[:n, n:n + m]
     I2 = E[:n, n + m:]
     return Ad, I1 - I2, I2
+
+
+def expm_diff(A, dA, t=1.0) -> torch.Tensor:
+    """Directional derivative of the matrix exponential,
+    d/deps expm((A + eps dA) t) at eps = 0, by forward-mode AD (reference
+    helper.jl:532 integrates a block-augmented system for it)."""
+    A = torch.as_tensor(A)
+    dA = torch.as_tensor(dA, dtype=A.dtype, device=A.device)
+    return torch.func.jvp(lambda M: torch.linalg.matrix_exp(M * t), (A,),
+                          (dA,))[1]

@@ -24,8 +24,6 @@ import pytest
 import torch
 
 from scptoolbox_torch.config import SCPStatus
-from scptoolbox_torch.models import double_integrator as tdi
-from scptoolbox_torch.models import oscillator as tosc
 from scptoolbox_torch.ops.discretize import DLTV as TDLTV
 from scptoolbox_torch.parser.problem import GuSTORunningCost
 from scptoolbox_torch.solvers import gusto as tgusto
@@ -37,8 +35,10 @@ from scptoolbox_tpu.solvers.subproblem import Assembler as JAssembler
 from scptoolbox_tpu.solvers.template import SCPTemplate as JTemplate
 from tests import torch_refs as refs
 
-# the JAX models package re-exports functions under the module names
+# both models packages re-export functions under the module names
 josc = import_module("scptoolbox_tpu.models.oscillator")
+tdi = import_module("scptoolbox_torch.models.double_integrator")
+tosc = import_module("scptoolbox_torch.models.oscillator")
 torch.set_num_threads(1)
 T64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
 
