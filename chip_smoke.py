@@ -345,15 +345,24 @@ def _design(torch, lk, ck, kernel, dt, nb, n, K):
         v = lk.LIB.load().lu_design(which, n, 8 if dt == torch.float64
                                     else 4)
         assert v >= 0, (kernel, n, v)
-        return (("warp", "panels", "grid"), ("panels", "rows"))[which][v]
+        names = (("warp", "panels", "grid panels"), ("panels", "rows"))
+        return names[which][v]
     which = {"cholesky": 0, "solve_lower": 1, "solve_lower_t": 2}.get(kernel)
     if which is None:
         return None
     sfx = "f32" if dt == torch.float32 else "f64"
-    v = getattr(ck.LIB.load(), f"chol_design_{sfx}")(which, nb, n, K)
+    query = getattr(ck.LIB.load(), f"chol_design_{sfx}")
+    v = query(which, nb, n, K)
     assert v >= 0, (kernel, nb, n, K, v)
     if which == 0:
-        return "one block" if v == 1 else f"spread over {v} blocks"
+        if v >= 2:
+            return f"spread over {v} blocks"
+        variant = query(3, nb, n, K)
+        assert variant in (0, 1, 2), (kernel, nb, n, variant)
+        if variant == 0 and n == 1:
+            return "thread a matrix"
+        return ("warp a matrix", "one block, shared memory",
+                "one block, device memory")[variant]
     return ("clusters", "panels", "one block (tri_solve)")[v]
 
 

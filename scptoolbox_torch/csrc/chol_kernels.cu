@@ -20,15 +20,41 @@
 // (n = 60..876, 1..128 matrices, K = 1, 2 or nz columns) the chain of
 // dependent steps bounds them, not bytes or flops: a factor is n steps, a
 // solve n steps, and a step that needs the whole block to agree costs a
-// barrier. The matrices do not fit in one block's shared memory (876^2
-// doubles are 6.1 MB, 314^2 floats 394 KB, against 227 KB a block), so they
-// are worked on in device memory, where the 50 MB L2 cache holds them, in
-// panels of up to 32 columns (rows) kept in shared memory or registers.
+// barrier. The large matrices do not fit in one block's shared memory
+// (876^2 doubles are 6.1 MB against 227 KB a block), so they are worked on
+// in device memory, where the 50 MB L2 cache holds them, in panels of up
+// to 32 columns (rows) kept in shared memory or registers; the lower
+// triangle of a batched 314^2 float32 block (in 32-column panels, 220 KB)
+// and of the smaller ones does fit, and stays there.
 //
 // The launchers choose the design from the batch:
 // * When the batch alone fills the card, one thread block owns a matrix
-//   (cholesky_kernel: more than half as many matrices as SMs), or a matrix
-//   and a block of right-hand-side columns. For the solves that is the
+//   (more than half as many matrices as SMs), or a matrix and a block of
+//   right-hand-side columns. The factor then takes one of three designs,
+//   by n:
+//   - n <= 32 (cholesky_warp_kernel): a warp per matrix, four a block,
+//     lane r holding row r in registers, the n steps chained by shuffles
+//     (factor_diag). No block barrier. At n = 1, a thread per matrix
+//     (cholesky_one_kernel).
+//   - while the lower triangle fits in one block's shared memory
+//     (cholesky_smem_kernel; float32 up to n ~ 320, float64 up to ~ 225):
+//     the triangle is copied in once with cp.async, stored as 32-column
+//     panels, each column-major over its rows below the panel's top, and
+//     L is written out once. Per panel, three block barriers: one warp
+//     factors the diagonal block in registers (factor_diag), the rows
+//     below it are scaled and updated a row a thread, and every warp
+//     updates the trailing triangle from shared memory in register tiles
+//     of 2 x 32 rows by 4 columns. The block size follows n (64 threads
+//     up to n = 64, 128, 256, then 512 in float32; 256 at least for a
+//     batch that leaves SMs idle), so that the 1536-matrix groups of
+//     StagedCRQD run many blocks an SM. Its bound at the batched shapes
+//     is the bytes of the triangle in and the factor out (30 us at 1536 x
+//     105^2 float32); it takes about 8x that, the diagonal blocks' chains
+//     of 1/sqrt steps overlapped only by the blocks an SM holds at once.
+//     At one small matrix that chain is all of it.
+//   - larger matrices (none on a path today): cholesky_kernel, the factor
+//     in device memory, panels of up to 32 columns in shared memory.
+//   For the solves that is the
 //   case with more matrices than the card holds clusters of 8 blocks at
 //   once (16 on an H100). solve_lower then takes the panel design of
 //   panel_solve.cuh (its panels of L staged in shared memory, coalesced,
@@ -36,7 +62,8 @@
 //   device memory) where two panels of n rows do not fit in shared memory;
 //   so does solve_lower_t, its panels' rows of L copied transposed.
 // * Otherwise (the serial programs factor one matrix at a time) one matrix
-//   is spread over many SMs:
+//   is spread over many SMs, unless its triangle fits in shared memory and
+//   the spread would give it few blocks (smem_over_spread: measured):
 //   - cholesky_spread_kernel runs as a cooperative persistent grid of up to
 //     one block per SM, with grid.sync() between its phases. A cluster (8,
 //     at most 16 blocks) would give cheaper barriers, but the factor of an
@@ -110,6 +137,9 @@ constexpr int kW = 32;          // panel width of the spread designs
 constexpr int kTile = 64;       // trailing tile of the spread factor
 constexpr int kCluster = 8;     // blocks of a solve cluster (portable)
 constexpr int kClusterThreads = 512;
+constexpr int kWarpMats = 4;    // n <= 32: matrices a block
+constexpr int kSmemPanels = 16;  // panels of the shared-memory design, most
+constexpr int kRB = 2;          // its trailing tiles: 32-row groups a lane
 
 // The factor is blocked into panels of W columns (W from the shared memory
 // the card allows, at most kMaxPanel). A panel is loaded into shared memory
@@ -330,23 +360,287 @@ tri_solve_kernel(const T* __restrict__ Lm, const T* __restrict__ Bm,
 // entries c2 in (c, r] take the product with row c2's entry c. The update
 // is computed on every lane and kept where it applies (a select, not a
 // branch, so that the unrolled steps schedule as one block); kFull: the
-// panel has kW columns and the column guards vanish.
-template <typename T, bool kFull>
+// panel has kW columns and the column guards vanish. The next diagonal
+// entry reaches every lane first: lane c + 1 forms its update from its own
+// entry c (the product its update takes, operand for operand), so the
+// chain from step to step is one shuffle, the 1/sqrt and three operations.
+// kSteps < 32 (with kFull): the block's first kSteps rows only, the
+// lanes past them holding unit rows (see below).
+template <typename T, bool kFull, int kSteps = kW>
 __device__ __forceinline__ void factor_diag(T (&x)[kW], int lane, int w,
                                             T* dinv_s) {
+  T d = __shfl_sync(0xffffffffu, x[0], 0);
 #pragma unroll
-  for (int c = 0; c < kW; ++c) {
+  for (int c = 0; c < kSteps; ++c) {
     if (kFull || c < w) {
-      const T dinv = T(1) / sqrt(__shfl_sync(0xffffffffu, x[c], c));
+      const T dinv = T(1) / sqrt(d);
       x[c] = x[c] * dinv;
+      if (c + 1 < kSteps)
+        d = __shfl_sync(0xffffffffu, x[c + 1] - x[c] * x[c], c + 1);
 #pragma unroll
-      for (int c2 = c + 1; c2 < kW; ++c2) {
+      for (int c2 = c + 1; c2 < kSteps; ++c2) {
         const T lc2 = __shfl_sync(0xffffffffu, x[c], c2);
         const T v = x[c2] - x[c] * lc2;
         x[c2] = ((kFull || c2 < w) && lane >= c2) ? v : x[c2];
       }
       if (lane == 0) dinv_s[c] = dinv;
     }
+  }
+}
+
+// A short diagonal block (w < 32 rows) runs factor_diag's full steps for
+// a count of rows past w, its lanes past w holding unit rows: the real
+// rows' entries see exactly the operations of the w steps (a unit row's
+// entries left of its diagonal are zeros, or NaN after a NaN pivot, and
+// never reach a real row), and the full steps schedule as one block where
+// the guarded short ones do not. kSteps: 0 all 32, a single instance of
+// the unrolled steps (for a kernel that factors blocks of several widths
+// in one launch: in float64 more instances made its steps slower, the
+// code fetched anew); 1 the next multiple of 8; 2 also 1, 2 or 4 (the
+// warp design, one width a launch).
+template <typename T, int kSteps>
+__device__ __forceinline__ void factor_diag_padded(T (&x)[kW], int lane,
+                                                   int w, T* dinv_s) {
+  if constexpr (kSteps == 0) {
+    factor_diag<T, true, kW>(x, lane, kW, dinv_s);
+    return;
+  }
+  if constexpr (kSteps == 2) {
+    if (w <= 4) {
+      if (w == 1)
+        factor_diag<T, true, 1>(x, lane, kW, dinv_s);
+      else if (w == 2)
+        factor_diag<T, true, 2>(x, lane, kW, dinv_s);
+      else
+        factor_diag<T, true, 4>(x, lane, kW, dinv_s);
+      return;
+    }
+  }
+  switch ((w + 7) >> 3) {
+    case 1: factor_diag<T, true, 8>(x, lane, kW, dinv_s); break;
+    case 2: factor_diag<T, true, 16>(x, lane, kW, dinv_s); break;
+    case 3: factor_diag<T, true, 24>(x, lane, kW, dinv_s); break;
+    default: factor_diag<T, true, kW>(x, lane, kW, dinv_s);
+  }
+}
+
+// n <= 32: a warp per matrix, kWarpMats a block. Lane r holds row r of the
+// lower triangle (zeros right of the diagonal) and factor_diag runs the
+// steps; the lanes write their rows of L, zeros above the diagonal.
+template <typename T>
+__global__ void __launch_bounds__(kWarpMats * 32)
+cholesky_warp_kernel(const T* __restrict__ A, T* __restrict__ Lout,
+                     long long nb, int n) {
+  __shared__ T dinv_s[kWarpMats][kW];      // factor_diag's 1/sqrt (unread)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long mat = (long long)blockIdx.x * kWarpMats + warp;
+  if (mat >= nb) return;                   // the whole warp
+  const int64_t off = mat * (int64_t)n * n + (int64_t)lane * n;
+  const T* a = A + off;
+  T x[kW];              // lanes past n: a unit row (see above)
+#pragma unroll
+  for (int c = 0; c < kW; ++c)
+    x[c] = lane < n ? (c <= lane ? a[c] : T(0)) : T(c == lane);
+  factor_diag_padded<T, 2>(x, lane, n, dinv_s[warp]);
+  if (lane < n) {
+    T* l = Lout + off;
+#pragma unroll
+    for (int c = 0; c < kW; ++c)
+      if (c < n) l[c] = c <= lane ? x[c] : T(0);
+  }
+}
+
+// n = 1: a thread per matrix, L = a / sqrt(a) as the plain step forms it
+// (the warp kernel's 32 lanes and shuffles cost more than the step).
+template <typename T>
+__global__ void cholesky_one_kernel(const T* __restrict__ A,
+                                    T* __restrict__ Lout, long long nb) {
+  const long long mat = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (mat >= nb) return;
+  const T a = A[mat];
+  Lout[mat] = a * (T(1) / sqrt(a));
+}
+
+// The shared-memory design's layout: panel p (columns j0 = 32 p .. j0 + 31)
+// column-major over its rows j0 .. n - 1, its columns smem_ld(n - j0)
+// apart (the row count rounded up to 16 bytes), the panels one after
+// another; entry (i, k), k <= i, of panel p at offset (k - j0) ld + i - j0.
+template <typename T>
+__host__ __device__ __forceinline__ int smem_ld(int rows) {
+  constexpr int V = 16 / sizeof(T);
+  return (rows + V - 1) / V * V;
+}
+
+// Bytes of the layout, with 4 entries of slack past the end (the trailing
+// tiles read a 4-column group whole).
+template <typename T>
+__host__ __device__ inline size_t smem_chol_bytes(int n) {
+  size_t e = 4;
+  for (int j0 = 0; j0 < n; j0 += kW) e += (size_t)kW * smem_ld<T>(n - j0);
+  return e * sizeof(T);
+}
+
+// Threads a block: by n, at most 512 in float32 and 256 in float64 (a
+// float64 row of a panel takes 64 registers).
+template <typename T>
+__host__ __device__ constexpr int smem_chol_max_threads() {
+  return sizeof(T) == 8 ? 256 : 512;
+}
+template <typename T>
+int smem_chol_threads(int n) {
+  const int t = n <= 64 ? 64 : n <= 128 ? 128 : n <= 256 ? 256 : 512;
+  return t < smem_chol_max_threads<T>() ? t : smem_chol_max_threads<T>();
+}
+
+// One block per matrix, the lower triangle in shared memory in the panel
+// layout above. Per panel: (a) warp 0 factors the diagonal block in its
+// registers (factor_diag); (b) every row below it, a row a thread, takes
+// 1/sqrt(d) and the diagonal block's products in column order (the
+// spread design's phase A); (c) the trailing lower triangle, in tasks of
+// 4 columns (k0 .. k0 + 3) by 64 rows (lane l: rows i0 + l and i0 + l +
+// 32), each entry taking the panel's 32 products in column order in a
+// register. Three block barriers a panel.
+// kMaxT threads at most, kMinB blocks an SM: an instance for blocks of at
+// most 128 threads keeps a thread to 85 registers, so that a batch of
+// small matrices runs six blocks an SM or more.
+template <typename T, int kMaxT, int kMinB>
+__global__ void __launch_bounds__(kMaxT, kMinB)
+cholesky_smem_kernel(const T* __restrict__ A, T* __restrict__ Lout, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* P = reinterpret_cast<T*>(smem_raw);
+  __shared__ T dinv_s[kW];
+  __shared__ int offs[kSmemPanels + 1];
+
+  const int64_t nn = (int64_t)n * n;
+  const T* a = A + blockIdx.x * nn;
+  T* l = Lout + blockIdx.x * nn;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int np = (n + kW - 1) / kW;
+  if (tid == 0) {
+    int o = 0;
+    for (int p = 0; p < np; ++p) {
+      offs[p] = o;
+      o += kW * smem_ld<T>(n - kW * p);
+    }
+  }
+  __syncthreads();
+  // where entry (i, k), k <= i, lies
+  auto at = [&](int i, int k) {
+    const int j0 = k & ~(kW - 1);
+    return offs[k >> 5] + (k - j0) * smem_ld<T>(n - j0) + (i - j0);
+  };
+
+  // the lower triangle of A, a row a warp
+  for (int i = warp; i < n; i += nwarps) {
+    const T* src = a + (int64_t)i * n;
+    for (int k = lane; k <= i; k += 32)
+      __pipeline_memcpy_async(P + at(i, k), src + k, sizeof(T));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int p = 0; p < np; ++p) {
+    const int j0 = kW * p;
+    const int w = min(kW, n - j0);
+    const int ld = smem_ld<T>(n - j0);
+    T* PT = P + offs[p];            // column c, row j0 + r: PT[c * ld + r]
+
+    // (a) the diagonal block, lane r holding row j0 + r
+    if (warp == 0) {
+      T x[kW];
+#pragma unroll
+      for (int c = 0; c < kW; ++c)
+        x[c] = lane < w ? (c <= lane ? PT[c * ld + lane] : T(0))
+                        : T(c == lane);       // a unit row past w
+      factor_diag_padded<T, sizeof(T) == 8 ? 0 : 1>(x, lane, w, dinv_s);
+#pragma unroll
+      for (int c = 0; c < kW; ++c)
+        if (lane < w && c <= lane) PT[c * ld + lane] = x[c];
+    }
+    __syncthreads();
+    if (j0 + kW >= n) break;        // the last panel: nothing below it
+
+    // (b) the panel's rows below the diagonal block, a row a thread
+    for (int r = kW + tid; r < n - j0; r += nt) {
+      T x[kW];
+#pragma unroll
+      for (int c = 0; c < kW; ++c) x[c] = PT[c * ld + r];
+#pragma unroll
+      for (int c = 0; c < kW; ++c) {
+        x[c] = x[c] * dinv_s[c];
+#pragma unroll
+        for (int c2 = c + 1; c2 < kW; ++c2)
+          x[c2] = x[c2] - x[c] * PT[c * ld + c2];
+      }
+#pragma unroll
+      for (int c = 0; c < kW; ++c) PT[c * ld + r] = x[c];
+    }
+    __syncthreads();
+
+    // (c) the trailing lower triangle, rows and columns base .. n - 1
+    const int base = j0 + kW;
+    const int ng = (n - base + 3) >> 2;
+    for (int g = warp; g < ng; g += nwarps) {
+      const int k0 = base + 4 * g;       // the group's 4 columns, one panel
+      const int jq = k0 & ~(kW - 1);
+      const int ldq = smem_ld<T>(n - jq);
+      // entry (i, k0 + q) at P[a0 + q ldq + i]
+      const int a0 = offs[k0 >> 5] + (k0 - jq) * ldq - jq;
+      const T* lk_col = PT + (k0 - j0);  // + c ld + q: L[k0 + q][j0 + c]
+      for (int i0 = k0; i0 < n; i0 += 32 * kRB) {
+        T acc[kRB][4];
+        int ri[kRB];
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+          const int i = i0 + lane + 32 * u;
+          ri[u] = min(i, n - 1) - j0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[u][q] = (i < n && k0 + q <= i) ? P[a0 + q * ldq + i] : T(0);
+        }
+#pragma unroll 8
+        for (int c = 0; c < kW; ++c) {
+          T lk[4], li[kRB];
+          const T* kp = lk_col + c * ld;
+          if constexpr (sizeof(T) == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(kp);
+            lk[0] = v.x; lk[1] = v.y; lk[2] = v.z; lk[3] = v.w;
+          } else {
+            const double2 v0 = *reinterpret_cast<const double2*>(kp);
+            const double2 v1 = *reinterpret_cast<const double2*>(kp + 2);
+            lk[0] = v0.x; lk[1] = v0.y; lk[2] = v1.x; lk[3] = v1.y;
+          }
+#pragma unroll
+          for (int u = 0; u < kRB; ++u) li[u] = PT[c * ld + ri[u]];
+#pragma unroll
+          for (int u = 0; u < kRB; ++u) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[u][q] = acc[u][q] - li[u] * lk[q];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+          const int i = i0 + lane + 32 * u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (i < n && k0 + q <= i) P[a0 + q * ldq + i] = acc[u][q];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // L, zeros above the diagonal, a row a warp
+  for (int i = warp; i < n; i += nwarps) {
+    T* dst = l + (int64_t)i * n;
+    for (int k = lane; k < n; k += 32) dst[k] = k <= i ? P[at(i, k)] : T(0);
   }
 }
 
@@ -857,22 +1151,101 @@ cudaError_t cholesky_blocks(long long nb, int n, const DeviceInfo* d,
   return cudaSuccess;
 }
 
+// Whether the lower triangle of an n x n matrix fits the shared-memory
+// design (its layout beside the kernel's few static bytes).
+template <typename T>
+bool smem_chol_fits(int n, int cap) {
+  return n <= kW * kSmemPanels && smem_chol_bytes<T>(n) + 512 <= (size_t)cap;
+}
+
+// The design cholesky takes for nb matrices of size n: 0 a warp a matrix,
+// 1 a block a matrix in shared memory, 2 a block a matrix in device memory
+// (cholesky_kernel), 3 the cooperative spread; bpm, when given, receives
+// the spread's blocks a matrix (what the spread would take, whichever
+// design runs).
+// Where the triangle fits in shared memory, the one-block design also
+// takes the few matrices that the spread would give up to 3 blocks each,
+// and, in float64, one matrix up to n = 212: measured faster there on an
+// H100 (scripts/torch_chol_switch.py: 0.57-0.89x the spread's time; the
+// spread stays faster at one float32 matrix of 200 or 314, one float64
+// matrix of 224, and at 8 float32 matrices of 314).
+template <typename T>
+bool smem_over_spread(long long nb, int n, int bpm) {
+  return bpm <= 3 || (nb == 1 && sizeof(T) == 8 && n <= 212);
+}
+
+template <typename T>
+cudaError_t cholesky_variant(long long nb, int n, const DeviceInfo* d,
+                             int* variant, int* bpm_out = nullptr) {
+  int bpm = 1;
+  cudaError_t e = cholesky_blocks<T>(nb, n, d, &bpm);
+  if (e != cudaSuccess) return e;
+  if (bpm_out != nullptr) *bpm_out = bpm;
+  const bool fits = n > kW && smem_chol_fits<T>(n, d->cap);
+  *variant = n <= kW ? 0
+             : bpm >= 2 && !(fits && smem_over_spread<T>(nb, n, bpm)) ? 3
+             : fits ? 1
+                    : 2;
+  return cudaSuccess;
+}
+
+// One instance of the shared-memory design.
+template <typename T, int kMaxT, int kMinB>
+int launch_smem(const T* A, T* L, long long nb, int n, int threads,
+                const DeviceInfo* d, void* stream) {
+  // the kernel may use all of a block's shared memory: set once per device
+  static bool ready[kMaxDevices];
+  if (!ready[d->dev]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cholesky_smem_kernel<T, kMaxT, kMinB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, d->cap - 512);
+    if (e != cudaSuccess) return (int)e;
+    ready[d->dev] = true;
+  }
+  cholesky_smem_kernel<T, kMaxT, kMinB>
+      <<<(unsigned)nb, threads, smem_chol_bytes<T>(n),
+         (cudaStream_t)stream>>>(A, L, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_cholesky(const T* A, T* L, long long nb, int n, void* stream) {
   const DeviceInfo* d = nullptr;
   cudaError_t e = device_info(&d);
   if (e != cudaSuccess) return (int)e;
   const int cap = d->cap;
-  int bpm = 1;
-  e = cholesky_blocks<T>(nb, n, d, &bpm);
+  int bpm = 1, variant = 0;
+  e = cholesky_variant<T>(nb, n, d, &variant, &bpm);
   if (e != cudaSuccess) return (int)e;
-  if (bpm >= 2) {
+  if (variant == 3) {
     int nn = n, b = bpm;
     void* args[] = {(void*)&A, (void*)&L, (void*)&nn, (void*)&b};
     e = cudaLaunchCooperativeKernel(
         (const void*)cholesky_spread_kernel<T>, dim3((unsigned)(nb * bpm)),
         dim3(kSpreadThreads), args, 0, (cudaStream_t)stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
+  if (variant == 0 && n == 1) {
+    cholesky_one_kernel<T><<<(unsigned)((nb + 127) / 128), 128, 0,
+                             (cudaStream_t)stream>>>(A, L, nb);
+    return (int)cudaGetLastError();
+  }
+  if (variant == 0) {
+    cholesky_warp_kernel<T><<<(unsigned)((nb + kWarpMats - 1) / kWarpMats),
+                              kWarpMats * 32, 0, (cudaStream_t)stream>>>(
+        A, L, nb, n);
+    return (int)cudaGetLastError();
+  }
+  if (variant == 1) {
+    // a batch that leaves SMs idle: more threads for the copies in and out
+    int threads = smem_chol_threads<T>(n);
+    if (nb <= d->sms && threads < 256) threads = 256;
+    if constexpr (sizeof(T) == 4) {
+      if (threads <= 128)
+        return launch_smem<T, 128, 6>(A, L, nb, n, threads, d, stream);
+    }
+    return launch_smem<T, smem_chol_max_threads<T>(), 1>(A, L, nb, n,
+                                                          threads, d, stream);
   }
   const size_t col = (size_t)n * sizeof(T);
   // the dynamic panel, beside the kernel's few static bytes
@@ -1089,19 +1462,23 @@ int cluster_fit(int fwd, int n, int K, long long nb, int cached) {
 }
 
 // The design the launchers take for nb matrices of size n and K columns:
-// cholesky (which 0) the blocks a matrix (1: cholesky_kernel, 2 or more:
-// cholesky_spread_kernel); solve_lower (1) and solve_lower_t (2) 0 on
+// cholesky (which 0) the blocks a matrix (1: a warp or a block a matrix,
+// 2 or more: cholesky_spread_kernel), and (which 3) which of its designs:
+// 0 cholesky_warp_kernel, 1 cholesky_smem_kernel, 2 cholesky_kernel, 3
+// cholesky_spread_kernel; solve_lower (1) and solve_lower_t (2) 0 on
 // clusters, 1 on the panel design, 2 on tri_solve_kernel; minus the CUDA
 // error on failure. Nothing is launched.
 template <typename T>
 int design(int which, long long nb, int n, int K) {
   cudaError_t e;
-  if (which == 0) {
+  if (which == 0 || which == 3) {
     const DeviceInfo* d = nullptr;
     e = device_info(&d);
-    int bpm = 1;
-    if (e == cudaSuccess) e = cholesky_blocks<T>(nb, n, d, &bpm);
-    return e != cudaSuccess ? -(int)e : bpm;
+    int bpm = 1, variant = 0;
+    if (e == cudaSuccess) e = cholesky_variant<T>(nb, n, d, &variant, &bpm);
+    return e != cudaSuccess ? -(int)e
+           : which == 0     ? (variant == 3 ? bpm : 1)
+                            : variant;
   }
   bool ok = false;
   e = which == 1 ? launch_cluster<T, true>(nullptr, nullptr, nullptr, nb, n,

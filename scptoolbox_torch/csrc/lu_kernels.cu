@@ -40,14 +40,30 @@
 //   as in the small design.
 // * beyond a block's shared memory (float64 above s = 168, float32 above
 //   239: the staged sweeps' arrow Schur complements, 694 wide on the
-//   softplus quadrotor): a cooperative grid, the matrices in device memory
-//   (a workspace by physical row, L2-resident), each matrix's rows dealt
-//   over G blocks (row p to block p mod G), a column a step with one
-//   grid.sync() a step. Every block keeps the whole position map in shared
-//   memory and swaps it the same way; a step reads the G blocks' candidate
-//   (key, position) pairs, picks the same winner everywhere, reads the
-//   pivot row once into shared memory, updates the block's rows below it
-//   and offers the block's candidate for the next column.
+//   softplus quadrotor): a cooperative grid, G blocks a matrix (all the
+//   SMs for one), the matrix in device memory (a workspace by physical
+//   row, L2-resident), in 32-column panels. What bounds it is the chain of
+//   s pivot steps and the barriers of the grid between panels (the bound
+//   by bytes and flops is 3.3 us at 694 float64). Per panel, two grid
+//   barriers: (1) one block of 512 threads factors the panel, a row a
+//   thread in registers and the rows past 512 staged in shared memory (up
+//   to 3 a thread; past what shared memory holds, about s = 1300 in
+//   float64 and 2048 in float32, the rest of a panel's rows stay in the
+//   workspace and take each step through L2: s up to ~22000 in float64),
+//   one block barrier a column; each warp offers its candidate row, the
+//   row itself copied into a shared buffer, so that the winner's row is
+//   read from there; the swaps are virtual (a position map in device
+//   memory that every block reads); (2) every SM takes 64 x 64 tiles of
+//   the trailing block: a tile solves its columns' 32 rows of U with the
+//   panel's unit-L diagonal block (warp shuffles, a lane a row; the tiles
+//   of a column solve them alike, the first writes them out), then each
+//   entry takes the panel's 32 products in column
+//   order in a register tile. Each trailing entry crosses L2 once a
+//   panel, not once a column.
+//   At s = 694: 45 grid barriers instead of 695. A look-ahead (the next
+//   panel factored while the trailing update runs) was left out: the next
+//   panel's columns would first need the whole panel's update on one SM,
+//   about as long as the factor itself.
 // The solve runs in 32-row panels (panel_solve.cuh): three barriers a panel
 // instead of one a row, the factor's panels copied coalesced into shared
 // memory one panel ahead with cp.async, the diagonal blocks chained by warp
@@ -307,8 +323,23 @@ __device__ __forceinline__ unsigned pick_winner(const unsigned long long* Ck,
   return oo[0];
 }
 
-// 16-byte vectors of a row in shared memory
+// 16-byte vectors of a row in shared memory, and (through L2) in device
+// memory
 template <typename T> constexpr int kVec = 16 / sizeof(T);
+__device__ __forceinline__ void ldcg_vec(const float* p, float* o) {
+  const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+}
+__device__ __forceinline__ void ldcg_vec(const double* p, double* o) {
+  const double2 t = __ldcg(reinterpret_cast<const double2*>(p));
+  o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void stcg_vec(float* p, const float* v) {
+  __stcg(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void stcg_vec(double* p, const double* v) {
+  __stcg(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
 __device__ __forceinline__ void ld_vec(const float* p, float* o) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
@@ -610,186 +641,582 @@ lu_factor_panel_kernel(const T* __restrict__ in, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// Beyond a block's shared memory: the cooperative grid design.
+// Beyond a block's shared memory: the blocked grid design.
 
-constexpr int kGridThreads = 256;
-constexpr int kGridUnroll = 4;     // update entries a thread loads at once
+constexpr int kGridThreads = 512;
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kSpill = 3;                  // staged panel rows a thread, most
+constexpr int kGridMaxS = kGridThreads * (1 + kSpill);
+// The staged rows a thread an instance is built for: one while the panel
+// has at most 1024 rows (fewer registers), else kSpill.
+inline int grid_spill_instance(int s) {
+  return s <= 2 * kGridThreads ? 1 : kSpill;
+}
+constexpr int kGridMaxPos = 0xffff;        // order_word's positions
+constexpr int kGLd = kPW + 1;              // staged panel row stride
+constexpr int kGT = 64;                    // trailing tiles: rows, columns
+constexpr int kGUs = kGT + 1;              // a tile's U strip row stride
 
-template <typename T>
-__host__ __device__ constexpr size_t grid_smem_bytes(int s, int nown) {
-  return ((size_t)s + nown) * sizeof(T) +
-         (size_t)nown * sizeof(typename KeyOf<T>::type) +
-         (2 * (size_t)s + nown + 2) * sizeof(int);
+// Entries of T in the shared memory that the panel and the trailing tiles
+// share: rs staged panel rows, or a tile's unit-L block, U strip and rows
+// of L (a multiple of four entries).
+__host__ __device__ constexpr size_t grid_union_elems(int rs) {
+  return (((size_t)rs * kGLd > (size_t)(kPW * kGLd + kPW * kGUs + kGT * kGLd)
+               ? (size_t)rs * kGLd
+               : (size_t)(kPW * kGLd + kPW * kGUs + kGT * kGLd)) + 3) / 4 * 4;
 }
 
-// Matrix mat's rows b, b + G, b + 2G, ... (nown of them) are this block's.
-// wk: the matrix by physical row in device memory, read and written through
-// L2 (__ldcg / __stcg), since other blocks read its pivot rows. cand: two
-// buffers of every block's candidate (key, position) for the next column.
-// Every block reaches every grid.sync() the same number of times.
 template <typename T>
-__global__ void __launch_bounds__(kGridThreads)
-lu_factor_grid_kernel(const T* __restrict__ in, T* __restrict__ out,
-                      int32_t* __restrict__ perm, T* work,
-                      unsigned long long* cand, long long nb, int s, int G) {
+__host__ __device__ constexpr size_t grid_smem_bytes(int s, int rs) {
+  return (grid_union_elems(rs) + 2 * kGridWarps * (kPW + 1)) * sizeof(T) +
+         2 * kGridWarps * (sizeof(typename KeyOf<T>::type) + sizeof(int)) +
+         2 * (size_t)s * sizeof(int);
+}
+
+// The rows past the registers' a panel at s stages in shared memory.
+__host__ __device__ constexpr int grid_spill_rows(int s) {
+  return s > kGridThreads ? s - kGridThreads : 0;
+}
+
+// The grid design's shared memory (sr: the staged rows it has room for).
+template <typename T>
+struct GridSmem {
   using K = typename KeyOf<T>::type;
+  T* S;          // the staged panel rows, kGLd apart
+  T* Ld;         // the panel's unit-L block: Ld[t * kGLd + r] = L(r, t)
+  T* Us;         // a tile's U strip: Us[r * kGUs + c]
+  T* Lt;         // a tile's rows' panel entries: Lt[r * kGLd + t]
+  T* Cv;         // two buffers of each warp's candidate: its row,
+  T* Cd;         // pivot reciprocal,
+  K* Ck;         // order key
+  unsigned* Co;  // and order word
+  int* Pm;       // position -> physical row
+  int* Ps;       // a panel's slot -> physical row
+  __device__ GridSmem(unsigned char* raw, int s, int sr) {
+    S = reinterpret_cast<T*>(raw);
+    Ld = S;
+    Us = Ld + kPW * kGLd;
+    Lt = Us + kPW * kGUs;
+    Cv = S + grid_union_elems(sr);
+    Cd = Cv + 2 * kGridWarps * kPW;
+    Ck = reinterpret_cast<K*>(Cd + 2 * kGridWarps);
+    Co = reinterpret_cast<unsigned*>(Ck + 2 * kGridWarps);
+    Pm = reinterpret_cast<int*>(Co + 2 * kGridWarps);
+    Ps = Pm + s;
+  }
+};
+
+// The winner's order word among the kGridWarps candidates at Ck, Co: the
+// largest key, then the largest order word (the first position); every
+// warp reduces them alike, lane l reading candidate l mod 16.
+template <typename K>
+__device__ __forceinline__ unsigned pick_grid(const K* Ck, const unsigned* Co,
+                                              int lane) {
+  const K k = Ck[lane & (kGridWarps - 1)];
+  const unsigned o = Co[lane & (kGridWarps - 1)];
+  const K best = warp_max(k);
+  return __reduce_max_sync(kAll, k == best ? o : 0u);
+}
+
+// A warp's candidate into buffer buf: its row (which: 0 the register row
+// v, k + 1 the thread's staged row k, -1 the far row at frow in device
+// memory), pivot reciprocal, key and order word.
+template <typename T>
+__device__ __forceinline__ void grid_publish(
+    const GridSmem<T>& sm, const T (&v)[kPW], int buf, int warp, int tid,
+    int nt, typename KeyOf<T>::type best, int bp, int which, T bv,
+    const T* frow) {
+  using K = typename KeyOf<T>::type;
+  T* dst = sm.Cv + (buf + warp) * kPW;
+  if (which == 0) {
+#pragma unroll
+    for (int c = 0; c < kPW; c += kVec<T>) st_vec(dst + c, v + c);
+  } else if (which < 0) {
+#pragma unroll 8
+    for (int c = 0; c < kPW; ++c) dst[c] = __ldcg(frow + c);
+  } else {
+    const T* row = sm.S + (tid + (which - 1) * nt) * kGLd;
+#pragma unroll 8
+    for (int c = 0; c < kPW; ++c) dst[c] = row[c];
+  }
+  sm.Cd[buf + warp] = pivot_recip(bv);
+  sm.Ck[buf + warp] = best;
+  sm.Co[buf + warp] = best != K(0) ? order_word(bp, warp) : 0u;
+}
+
+// Panel columns p0 .. p0 + 31 of one matrix over its rows at positions p0
+// .. s - 1 (more than 32 of them), by one block, one block barrier a
+// column. Slot r is the row at position p0 + r when the panel starts
+// (physical row Ps[r]): slot t < 512 lies in thread t's registers, slot
+// 512 + m (m < SR, the rows S has room for) in S[m], owned by thread m %
+// 512; with kFar, the slots past those (far rows) stay in wk, owned by
+// thread f % 512 for far row f, their positions in fpos. A step: every
+// thread picks the same winner among the warps' candidates (the largest
+// key, the smallest position) and reads its row from the candidate
+// buffer; the rows below the pivot take their multiplier and update their
+// next column (a far row all of its columns, through L2), the warp's
+// reductions for the next step start, the rest of the rows are updated,
+// and the lane holding the warp's candidate copies its row, key, order
+// word and pivot reciprocal into the other buffer.
+template <typename T, int kSp, bool kFar>
+__device__ void grid_panel(const GridSmem<T>& sm, T* wk, int* gmap,
+                           int* fpos, int32_t* prec, int s, int p0, int sr) {
+  using K = typename KeyOf<T>::type;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int R = s - p0;
+  const int RX = R > nt ? R - nt : 0;          // rows past the registers'
+  const int RS = kFar && RX > sr ? sr : RX;    // staged rows
+  const int RF = RX - RS;                      // far rows
+  const int F0 = nt + RS;                      // the first far row's slot
+  for (int r = tid; r < R; r += nt) sm.Ps[r] = sm.Pm[p0 + r];
+  __syncthreads();
+  const bool has0 = tid < R;
+  // a row's 32 entries as 16-byte vectors where the rows allow it
+  constexpr int V = kVec<T>;
+  const bool vec = ((size_t)s * sizeof(T)) % 16 == 0;
+  T v[kPW];
+  {
+    const T* src = wk + (int64_t)(has0 ? sm.Ps[tid] : 0) * s + p0;
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < kPW; c += V) ldcg_vec(src + c, v + c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kPW; ++c) v[c] = __ldcg(src + c);
+    }
+    if (!has0) {
+#pragma unroll
+      for (int c = 0; c < kPW; ++c) v[c] = T(0);
+    }
+  }
+#pragma unroll 4
+  for (int m = warp; m < RS; m += nwarps)
+    sm.S[m * kGLd + lane] =
+        __ldcg(wk + (int64_t)sm.Ps[nt + m] * s + p0 + lane);
+  __syncthreads();
+
+  int pos0 = has0 ? p0 + tid : s;              // s: no row
+  int pos[kSp];
+#pragma unroll
+  for (int k = 0; k < kSp; ++k) {
+    const int m = tid + k * nt;
+    pos[k] = m < RS ? p0 + nt + m : s;
+  }
+  // far row f's physical row
+  auto far_row = [&](int f) { return wk + (int64_t)sm.Ps[F0 + f] * s + p0; };
+  if constexpr (kFar)
+    for (int f = tid; f < RF; f += nt) fpos[f] = p0 + F0 + f;
+  // the warp's candidate: the largest key bk among its lanes', then the
+  // smallest position bp; which: 0 the register row, k + 1 staged row k,
+  // -1 the far row at bf
+  auto reduce = [&](K bk, int bp, K& best) {
+    best = warp_max(bk);
+    const unsigned wp =
+        __reduce_min_sync(kAll, bk == best ? (unsigned)bp : 0xffffffffu);
+    return best != K(0) ? (bk == best && (unsigned)bp == wp) : lane == 0;
+  };
+  {
+    K bk = has0 ? pivot_key(v[0]) : K(0);
+    int bp = pos0, which = 0;
+    T bv = v[0];
+#pragma unroll
+    for (int k = 0; k < kSp; ++k) {
+      if (pos[k] < s) {
+        const T x = sm.S[(tid + k * nt) * kGLd];
+        const K key = pivot_key(x);
+        if (key > bk || (key == bk && pos[k] < bp)) {
+          bk = key;
+          bp = pos[k];
+          which = k + 1;
+          bv = x;
+        }
+      }
+    }
+    const T* bf = nullptr;
+    if constexpr (kFar) {
+      for (int f = tid; f < RF; f += nt) {
+        const T* row = far_row(f);
+        const T x = __ldcg(row);
+        const K key = pivot_key(x);
+        if (key > bk || (key == bk && p0 + F0 + f < bp)) {
+          bk = key;
+          bp = p0 + F0 + f;
+          which = -1;
+          bv = x;
+          bf = row;
+        }
+      }
+    }
+    K best;
+    if (reduce(bk, bp, best))
+      grid_publish(sm, v, 0, warp, tid, nt, best, bp, which, bv, bf);
+  }
+
+  int rec = 0;            // thread jj: step p0 + jj's pivot position
+#pragma unroll
+  for (int jj = 0; jj < kPW; ++jj) {
+    const int j = p0 + jj;
+    const int b = (jj & 1) * kGridWarps;
+    __syncthreads();                 // the candidates of step jj
+    const unsigned won = pick_grid(sm.Ck + b, sm.Co + b, lane);
+    const int bw = (int)(won & 0xffu);
+    const int rp = (int)(0xffffu - (won >> 8));
+    const T* urow = sm.Cv + (b + bw) * kPW;
+    const T d = sm.Cd[b + bw];
+    if (tid == jj) rec = rp;
+    if (pos0 == rp)
+      pos0 = j;
+    else if (pos0 == j)
+      pos0 = rp;
+#pragma unroll
+    for (int k = 0; k < kSp; ++k) {
+      if (pos[k] == rp)
+        pos[k] = j;
+      else if (pos[k] == j)
+        pos[k] = rp;
+    }
+    // the multipliers and the next column first
+    K bk = K(0);
+    int bp = 0x7fffffff, which = 0;
+    T bv = T(0);
+    const bool up0 = has0 && pos0 > j;
+    const T l0 = v[jj] * d;
+    if (jj + 1 < kPW && up0) {
+      v[jj + 1] = v[jj + 1] - l0 * urow[jj + 1];
+      bk = pivot_key(v[jj + 1]);
+      bp = pos0;
+      bv = v[jj + 1];
+    }
+    T lm[kSp];
+#pragma unroll
+    for (int k = 0; k < kSp; ++k) {
+      lm[k] = T(0);
+      if (pos[k] < s && pos[k] > j) {
+        T* row = sm.S + (tid + k * nt) * kGLd;
+        lm[k] = row[jj] * d;
+        if (jj + 1 < kPW) {
+          const T x = row[jj + 1] - lm[k] * urow[jj + 1];
+          row[jj + 1] = x;
+          const K key = pivot_key(x);
+          if (key > bk || (key == bk && pos[k] < bp)) {
+            bk = key;
+            bp = pos[k];
+            which = k + 1;
+            bv = x;
+          }
+        }
+      }
+    }
+    // the far rows: the swap, then the whole step (the entries through L2,
+    // each taking its one product and difference as in registers)
+    const T* bf = nullptr;
+    if constexpr (kFar) {
+      for (int f = tid; f < RF; f += nt) {
+        int p = fpos[f];
+        if (p == rp || p == j) fpos[f] = p = p == rp ? j : rp;
+        if (p <= j) continue;
+        T* row = far_row(f);
+        const T l = __ldcg(row + jj) * d;
+        if (jj + 1 < kPW) {
+          const T x = __ldcg(row + jj + 1) - l * urow[jj + 1];
+          __stcg(row + jj + 1, x);
+          const K key = pivot_key(x);
+          if (key > bk || (key == bk && p < bp)) {
+            bk = key;
+            bp = p;
+            which = -1;
+            bv = x;
+            bf = row;
+          }
+        }
+        for (int c = jj + 2; c < kPW; ++c)
+          __stcg(row + c, __ldcg(row + c) - l * urow[c]);
+        __stcg(row + jj, l);
+      }
+    }
+    K best = K(0);
+    const bool mine = jj + 1 < kPW && reduce(bk, bp, best);
+    // the rest of the rows (the pivot row read as 16-byte vectors)
+#pragma unroll
+    for (int c0 = 0; c0 < kPW; c0 += V) {
+      if (c0 + V > jj + 2) {
+        T u[V];
+        ld_vec(urow + c0, u);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if (c0 + e >= jj + 2)
+            v[c0 + e] = up0 ? v[c0 + e] - l0 * u[e] : v[c0 + e];
+        }
+      }
+    }
+    if (up0) v[jj] = l0;
+#pragma unroll
+    for (int k = 0; k < kSp; ++k) {
+      if (pos[k] < s && pos[k] > j) {
+        T* row = sm.S + (tid + k * nt) * kGLd;
+#pragma unroll 4
+        for (int c = jj + 2; c < kPW; ++c) row[c] = row[c] - lm[k] * urow[c];
+        row[jj] = lm[k];
+      }
+    }
+    if (mine)
+      grid_publish(sm, v, b ^ kGridWarps, warp, tid, nt, best, bp, which,
+                   bv, bf);
+  }
+  __syncthreads();                   // every row is done
+  // the rows back into wk, the map, the record
+  if (has0) {
+    T* dst = wk + (int64_t)sm.Ps[tid] * s + p0;
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < kPW; c += V) stcg_vec(dst + c, v + c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kPW; ++c) __stcg(dst + c, v[c]);
+    }
+    sm.Pm[pos0] = sm.Ps[tid];
+    __stcg(gmap + pos0, sm.Ps[tid]);
+  }
+#pragma unroll
+  for (int k = 0; k < kSp; ++k) {
+    if (pos[k] < s) {
+      const int ph = sm.Ps[nt + tid + k * nt];
+      sm.Pm[pos[k]] = ph;
+      __stcg(gmap + pos[k], ph);
+    }
+  }
+  if constexpr (kFar) {
+    for (int f = tid; f < RF; f += nt) {
+      const int ph = sm.Ps[F0 + f];
+      sm.Pm[fpos[f]] = ph;
+      __stcg(gmap + fpos[f], ph);
+    }
+  }
+  for (int m = warp; m < RS; m += nwarps)
+    __stcg(wk + (int64_t)sm.Ps[nt + m] * s + p0 + lane,
+           sm.S[m * kGLd + lane]);
+  if (tid < kPW) prec[p0 + tid] = rec;
+}
+
+// The last panel (columns p0 .. s - 1, at most 32 rows and columns), on
+// one warp (warp_lu), the rows in registers, no barrier.
+template <typename T>
+__device__ void grid_panel_warp(const GridSmem<T>& sm, T* wk, int* gmap,
+                                int32_t* prec, int s, int p0) {
+  const int lane = threadIdx.x & 31;
+  const int w = s - p0;
+  const bool has_row = lane < w;
+  const int ph = has_row ? sm.Pm[p0 + lane] : 0;
+  int pos = has_row ? p0 + lane : s + lane;
+  T* row = wk + (int64_t)ph * s + p0;
+  T v[kPW];
+#pragma unroll
+  for (int c = 0; c < kPW; ++c)
+    v[c] = (has_row && c < w) ? __ldcg(row + c) : T(0);
+  int rec = 0;
+  warp_lu<T, kPW>(v, pos, rec, has_row, p0, w, lane);
+  __syncwarp();           // every lane has read its map entry
+  if (has_row) {
+#pragma unroll
+    for (int c = 0; c < kPW; ++c)
+      if (c < w) __stcg(row + c, v[c]);
+    sm.Pm[pos] = ph;
+    __stcg(gmap + pos, ph);
+    prec[p0 + lane] = rec;
+  }
+}
+
+// The trailing block of the panel at p0 (positions and columns p0 + 32 ..
+// s - 1) in kGT x kGT tiles dealt over the group's G blocks; Pm is the
+// map after the panel. A tile solves its columns' 32 rows of U (positions
+// p0 .. p0 + 31) with the panel's unit-L block, a warp per 4 columns and a
+// lane per row, the steps chained by shuffles (every tile of a column
+// solves them alike; the first row of tiles writes them to out, where
+// those rows are final), then takes the panel's 32 updates in registers,
+// thread (tr, tc) keeping rows tr + 32 u and columns tc + 16 q. A tile's
+// loads from L2 are all issued before its first barrier.
+template <typename T>
+__device__ void grid_trailing(const GridSmem<T>& sm, T* wk, T* out, int s,
+                              int p0, int b, int G) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int i0 = p0 + kPW;
+  const int nct = (s - i0 + kGT - 1) / kGT;
+  const int ntiles = nct * nct;
+  if (b >= ntiles) return;
+  for (int e = tid; e < kPW * kPW; e += nt) {
+    const int r = e >> 5, t = e & 31;
+    sm.Ld[t * kGLd + r] =
+        t < r ? __ldcg(wk + (int64_t)sm.Pm[p0 + r] * s + p0 + t) : T(0);
+  }
+  const T* urow = wk + (int64_t)sm.Pm[p0 + lane] * s;
+  const int tr = tid >> 4, tc = tid & 15;
+  for (int t = b; t < ntiles; t += G) {
+    const int ti = t / nct, tk = t - ti * nct;
+    const int r0 = i0 + ti * kGT, c0 = i0 + tk * kGT;
+    // the tile's entries, its columns' rows of U and its rows of L
+    int64_t rb[2];
+    T acc[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int pos = r0 + tr + 32 * u;
+      rb[u] = pos < s ? (int64_t)sm.Pm[pos] * s : -1;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + tc + 16 * q;
+        acc[u][q] = (rb[u] >= 0 && c < s) ? __ldcg(wk + rb[u] + c) : T(0);
+      }
+    }
+    T x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + warp + 16 * q;
+      x[q] = c < s ? __ldcg(urow + c) : T(0);
+    }
+#pragma unroll 4
+    for (int e = tid; e < kGT * kPW; e += nt) {
+      const int r = e >> 5, tt = e & 31;
+      sm.Lt[r * kGLd + tt] =
+          r0 + r < s ? __ldcg(wk + (int64_t)sm.Pm[r0 + r] * s + p0 + tt)
+                     : T(0);
+    }
+    __syncthreads();                 // Ld and Lt are staged
+    // the U strip: lane l is row p0 + l of columns c0 + warp + 16 q
+#pragma unroll 4
+    for (int tt = 0; tt < kPW; ++tt) {
+      const T lt = sm.Ld[tt * kGLd + lane];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T xt = __shfl_sync(kAll, x[q], tt);
+        if (lane > tt) x[q] = x[q] - lt * xt;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = warp + 16 * q;
+      sm.Us[lane * kGUs + c] = x[q];
+      if (ti == 0 && c0 + c < s) out[(int64_t)(p0 + lane) * s + c0 + c] = x[q];
+    }
+    __syncthreads();                 // the U strip is solved
+#pragma unroll 8
+    for (int tt = 0; tt < kPW; ++tt) {
+      T li[2], uk[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) li[u] = sm.Lt[(tr + 32 * u) * kGLd + tt];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) uk[q] = sm.Us[tt * kGUs + tc + 16 * q];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[u][q] = acc[u][q] - li[u] * uk[q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + tc + 16 * q;
+        if (rb[u] >= 0 && c < s) __stcg(wk + rb[u] + c, acc[u][q]);
+      }
+    }
+    __syncthreads();                 // Lt and Us are free again
+  }
+}
+
+// Matrices past a block's shared memory. A group of G blocks factors one
+// matrix at a time (the groups take the matrices in rounds); wk is the
+// matrix by physical row in device memory (L2-resident), gmap the group's
+// position -> physical row map, fpos (after it in maps) its far rows'
+// positions in a panel (kFar: the panel's rows past the registers' and
+// the sr that S has room for). Per 32-column panel two barriers of the
+// grid: block 0 of the group factors the panel (grid_panel, or
+// grid_panel_warp for the last), then every block takes its tiles of the
+// trailing block (grid_trailing). At the end the blocks copy the rows out
+// by position: the part of each row left of and in its own panel from wk
+// (the part right of it, its row of U, grid_trailing wrote). Every block
+// reaches every barrier the same number of times; with G = 1 a block
+// barrier serves.
+template <typename T, int kSp, bool kFar>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lu_factor_grid_kernel(const T* __restrict__ in, T* __restrict__ out,
+                      int32_t* __restrict__ perm, T* work, int* maps,
+                      long long nb, int s, int G, int sr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GridSmem<T> sm(smem_raw, s, sr);
   cg::grid_group grid = cg::this_grid();
-  const int nblk = gridDim.x;
-  const int groups = nblk / G;
+  const int groups = gridDim.x / G;
   const int g = blockIdx.x / G;
   const int b = blockIdx.x - g * G;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nown = (s - b + G - 1) / G;
-  const int mown = (s + G - 1) / G;            // block 0's, the most
-  T* U = reinterpret_cast<T*>(smem_raw);       // the pivot row
-  T* lr = U + s;                               // active rows' multipliers
-  K* ck = reinterpret_cast<K*>(lr + mown);     // own rows' next keys
-  int* Pm = reinterpret_cast<int*>(ck + mown); // position -> physical row
-  int* Ps = Pm + s;                            // physical row -> position
-  int* act = Ps + s;                           // active own rows
-  int& na_s = act[mown];                       // their count
-  int& win_s = act[mown + 1];                  // the pivot's physical row
+  const int nwarps = nt >> 5;
   const int64_t ss = (int64_t)s * s;
-
-  // warp 0 offers the block's candidate: the largest key among its rows'
-  // ck, then the smallest position
-  auto offer = [&](int buf) {
-    K bk = K(0);
-    unsigned bp = 0xffffffffu;
-    for (int k = lane; k < nown; k += 32) {
-      const K kk = ck[k];
-      const unsigned ps = (unsigned)Ps[b + k * G];
-      if (kk > bk || (kk == bk && kk != K(0) && ps < bp)) {
-        bk = kk;
-        bp = ps;
-      }
-    }
-    const K best = warp_max(bk);
-    const unsigned bpos =
-        __reduce_min_sync(kAll, bk == best ? bp : 0xffffffffu);
-    if (lane == 0) {
-      const size_t e = ((size_t)buf * nblk + blockIdx.x) * 2;
-      __stcg(cand + e, (unsigned long long)best);
-      __stcg(cand + e + 1, (unsigned long long)bpos);
-    }
+  int* gmap = maps + (int64_t)g * 2 * s;
+  int* fpos = gmap + s;
+  auto sync = [&]() {
+    if (G > 1)
+      grid.sync();
+    else
+      __syncthreads();
+  };
+  // the map's entries from position p0 on, as block 0 left them
+  auto load_map = [&](int p0) {
+    for (int i = p0 + tid; i < s; i += nt) sm.Pm[i] = __ldcg(gmap + i);
+    __syncthreads();
   };
 
   const long long rounds = (nb + groups - 1) / groups;
   for (long long q = 0; q < rounds; ++q) {
     const long long mat = g + q * groups;
     const bool live = mat < nb;                // the same for the group
-    const T* src = in + (live ? mat : 0) * ss;
     T* wk = work + (live ? mat : 0) * ss;
-    for (int i = tid; i < s; i += nt) {
-      Pm[i] = i;
-      Ps[i] = i;
+    int32_t* prec = perm + (live ? mat : 0) * s;
+    if (live) {
+      const T* src = in + mat * ss;
+      for (int i = tid; i < s; i += nt) sm.Pm[i] = i;
+      if (b == 0)
+        for (int i = tid; i < s; i += nt) __stcg(gmap + i, i);
+      for (int r = b * nwarps + warp; r < s; r += G * nwarps)
+        for (int c = lane; c < s; c += 32)
+          __stcg(wk + (int64_t)r * s + c, src[(int64_t)r * s + c]);
     }
-    for (int k = 0; k < nown; ++k) {
-      const int64_t row = (int64_t)(b + k * G) * s;
-      for (int c = tid; c < s; c += nt) {
-        const T v = live ? src[row + c] : T(0);
-        if (live) __stcg(wk + row + c, v);
-        if (c == 0) ck[k] = live ? pivot_key(v) : K(0);
+    sync();
+    int p0 = 0;
+    for (;; p0 += kPW) {
+      const bool last = s - p0 <= kPW;
+      if (live && b == 0) {
+        if (!last)
+          grid_panel<T, kSp, kFar>(sm, wk, gmap, fpos, prec, s, p0, sr);
+        else if (warp == 0)
+          grid_panel_warp<T>(sm, wk, gmap, prec, s, p0);
       }
-    }
-    __syncthreads();
-    if (warp == 0) offer(0);
-
-    for (int j = 0; j < s; ++j) {
-      grid.sync();                             // step j's candidates
-      if (!live) continue;
-      if (warp == 0) {
-        K bk = K(0);
-        unsigned bp = 0xffffffffu;
-        for (int i = lane; i < G; i += 32) {
-          const size_t e = ((size_t)(j & 1) * nblk + g * G + i) * 2;
-          const K kk = (K)__ldcg(cand + e);
-          const unsigned ps = (unsigned)__ldcg(cand + e + 1);
-          if (kk > bk || (kk == bk && ps < bp)) {
-            bk = kk;
-            bp = ps;
-          }
-        }
-        const K best = warp_max(bk);
-        const int r = (int)__reduce_min_sync(kAll, bk == best ? bp
-                                                              : 0xffffffffu);
-        if (lane == 0) {
-          if (b == 0) perm[mat * s + j] = r;
-          const int pj = Pm[j], pr = Pm[r];
-          Pm[j] = pr;
-          Pm[r] = pj;
-          Ps[pr] = j;
-          Ps[pj] = r;
-          win_s = pr;
-        }
-        __syncwarp();
-        const T d = pivot_recip(__ldcg(wk + (int64_t)Pm[j] * s + j));
-        // the own rows below the pivot, and their multipliers
-        int na = 0;
-        for (int k0 = 0; k0 < nown; k0 += 32) {
-          const int k = k0 + lane;
-          const int p = b + k * G;
-          const bool a = k < nown && Ps[p] > j;
-          if (k < nown) ck[k] = K(0);
-          const unsigned m = __ballot_sync(kAll, a);
-          if (a) {
-            const int slot = na + __popc(m & ((1u << lane) - 1u));
-            act[slot] = k;
-            lr[slot] = __ldcg(wk + (int64_t)p * s + j) * d;
-          }
-          na += __popc(m);
-        }
-        if (lane == 0) na_s = na;
+      sync();                                  // the panel is factored
+      if (last) break;
+      if (live) {
+        load_map(p0);
+        grid_trailing<T>(sm, wk, out + mat * ss, s, p0, b, G);
       }
-      __syncthreads();
-      const int na = na_s;
-      const int64_t prow = (int64_t)win_s * s;
-      for (int c = j + 1 + tid; c < s; c += nt) U[c] = __ldcg(wk + prow + c);
-      __syncthreads();
-      const int ncols = s - j - 1;
-      const int total = na * ncols;
-      for (int base = tid; base < total; base += nt * kGridUnroll) {
-        T v[kGridUnroll];
-        int64_t off[kGridUnroll];
-        int aa[kGridUnroll], cc[kGridUnroll];
-#pragma unroll
-        for (int u = 0; u < kGridUnroll; ++u) {
-          const int idx = base + u * nt;
-          if (idx < total) {
-            aa[u] = idx / ncols;
-            cc[u] = j + 1 + (idx - aa[u] * ncols);
-            off[u] = (int64_t)(b + act[aa[u]] * G) * s + cc[u];
-            v[u] = __ldcg(wk + off[u]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kGridUnroll; ++u) {
-          const int idx = base + u * nt;
-          if (idx < total) {
-            const T x = v[u] - lr[aa[u]] * U[cc[u]];
-            __stcg(wk + off[u], x);
-            if (cc[u] == j + 1) ck[act[aa[u]]] = pivot_key(x);
-          }
-        }
-      }
-      for (int a = tid; a < na; a += nt)
-        __stcg(wk + (int64_t)(b + act[a] * G) * s + j, lr[a]);
-      __syncthreads();
-      if (warp == 0 && j + 1 < s) offer((j + 1) & 1);
+      sync();                                  // the trailing block is done
     }
     if (live) {
+      load_map(p0);
       T* dst = out + mat * ss;
-      for (int k = 0; k < nown; ++k) {
-        const int p = b + k * G;
-        const int64_t to = (int64_t)Ps[p] * s, from = (int64_t)p * s;
-        for (int c = tid; c < s; c += nt) dst[to + c] = __ldcg(wk + from + c);
+      for (int i = b * nwarps + warp; i < s; i += G * nwarps) {
+        const int cend = min(s, (i & ~(kPW - 1)) + kPW);
+        const T* row = wk + (int64_t)sm.Pm[i] * s;
+        for (int c = lane; c < cend; c += 32)
+          dst[(int64_t)i * s + c] = __ldcg(row + c);
       }
     }
-    grid.sync();                 // the candidate buffers are free again
+    sync();                  // the group's map is free for the next round
   }
 }
 
@@ -965,34 +1392,57 @@ int launch_factor(const T* in, T* out, int32_t* perm, long long nb, int s,
   return (int)cudaGetLastError();
 }
 
-// The grid design: groups of G blocks, a group per matrix at a time, at
-// most one block an SM (a cooperative grid must be resident at once).
+// The largest s whose panel rows past the registers' all fit in S, on a
+// card whose blocks have cap bytes of shared memory.
 template <typename T>
-int launch_factor_grid(const T* in, T* out, int32_t* perm, T* work,
-                       unsigned long long* cand, long long nb, int s,
-                       void* stream) {
-  const panel::DeviceInfo* d = nullptr;
-  cudaError_t e = panel::device_info(&d);
-  if (e != cudaSuccess) return (int)e;
-  if (!d->coop) return (int)cudaErrorNotSupported;
-  const int groups = (int)(nb < d->sms ? nb : d->sms);
-  int G = d->sms / groups;
-  G = G < s ? G : s;
-  const size_t smem = grid_smem_bytes<T>(s, (s + G - 1) / G);
-  if (smem > (size_t)d->cap) return (int)cudaErrorInvalidValue;
+int grid_staged_max_s(int cap) {
+  int s = kGridMaxS;
+  while (s > 0 && grid_smem_bytes<T>(s, grid_spill_rows(s)) > (size_t)cap)
+    --s;
+  return s;
+}
+
+// The largest s the grid design takes (past grid_staged_max_s, with far
+// rows; shared memory then holds the two maps of s ints).
+template <typename T>
+int grid_max_s(int cap) {
+  const size_t base = grid_smem_bytes<T>(0, 0);
+  const long long s =
+      cap > (long long)base ? (cap - (long long)base) / (2 * sizeof(int)) : 0;
+  return (int)(s < kGridMaxPos ? s : kGridMaxPos);
+}
+
+// The rows S has room for at s past grid_staged_max_s (at most kSpill a
+// thread).
+template <typename T>
+int grid_far_staged(int s, int cap) {
+  int rs = kSpill * kGridThreads;
+  while (rs > 0 && grid_smem_bytes<T>(s, rs) > (size_t)cap) --rs;
+  return rs;
+}
+
+// One instance of the grid design's kernel, launched.
+template <typename T, int kSp, bool kFar>
+int launch_grid(const T* in, T* out, int32_t* perm, T* work, int* maps,
+                long long nb, int s, int G, int groups, int sr,
+                const panel::DeviceInfo* d, void* stream) {
   static bool ready[panel::kMaxDevices];
+  cudaError_t e;
   if (!ready[d->dev]) {
-    e = cudaFuncSetAttribute(lu_factor_grid_kernel<T>,
+    e = cudaFuncSetAttribute(lu_factor_grid_kernel<T, kSp, kFar>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              d->cap);
     if (e != cudaSuccess) return (int)e;
     ready[d->dev] = true;
   }
-  int ss = s, gg = G;
+  int ss = s, gg = G, rr = sr;
   long long n = nb;
-  void* args[] = {(void*)&in, (void*)&out, (void*)&perm, (void*)&work,
-                  (void*)&cand, (void*)&n, (void*)&ss, (void*)&gg};
-  e = cudaLaunchCooperativeKernel((const void*)lu_factor_grid_kernel<T>,
+  void* args[] = {(void*)&in,   (void*)&out, (void*)&perm,
+                  (void*)&work, (void*)&maps, (void*)&n,
+                  (void*)&ss,   (void*)&gg,  (void*)&rr};
+  const size_t smem = grid_smem_bytes<T>(s, sr);
+  e = cudaLaunchCooperativeKernel(
+      (const void*)lu_factor_grid_kernel<T, kSp, kFar>,
                                   dim3((unsigned)(groups * G)),
                                   dim3(kGridThreads), args, smem,
                                   (cudaStream_t)stream);
@@ -1001,6 +1451,31 @@ int launch_factor_grid(const T* in, T* out, int32_t* perm, T* work,
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// The grid design: groups of G blocks, a group per matrix at a time, one
+// block an SM (a cooperative grid must be resident at once).
+template <typename T>
+int launch_factor_grid(const T* in, T* out, int32_t* perm, T* work,
+                       int* maps, long long nb, int s, void* stream) {
+  const panel::DeviceInfo* d = nullptr;
+  cudaError_t e = panel::device_info(&d);
+  if (e != cudaSuccess) return (int)e;
+  if (!d->coop) return (int)cudaErrorNotSupported;
+  if (s > grid_max_s<T>(d->cap)) return (int)cudaErrorInvalidValue;
+  const int groups = (int)(nb < d->sms ? nb : d->sms);
+  int G = d->sms / groups;
+  G = G < s ? G : s;
+  if (s > grid_staged_max_s<T>(d->cap))
+    return launch_grid<T, kSpill, true>(in, out, perm, work, maps, nb, s, G,
+                                        groups, grid_far_staged<T>(s, d->cap),
+                                        d, stream);
+  const int sr = grid_spill_rows(s);
+  return grid_spill_instance(s) == 1
+             ? launch_grid<T, 1, false>(in, out, perm, work, maps, nb, s, G,
+                                        groups, sr, d, stream)
+             : launch_grid<T, kSpill, false>(in, out, perm, work, maps, nb, s,
+                                             G, groups, sr, d, stream);
 }
 
 // The panel design where one column's plan fits in shared memory, else the
@@ -1048,23 +1523,31 @@ int lu_factor_f64(const double* in, double* out, int32_t* perm,
 }
 
 int lu_factor_grid_f32(const float* in, float* out, int32_t* perm,
-                       float* work, unsigned long long* cand, long long nb,
-                       int s, void* stream) {
-  return launch_factor_grid<float>(in, out, perm, work, cand, nb, s, stream);
+                       float* work, int* maps, long long nb, int s,
+                       void* stream) {
+  return launch_factor_grid<float>(in, out, perm, work, maps, nb, s, stream);
 }
 
 int lu_factor_grid_f64(const double* in, double* out, int32_t* perm,
-                       double* work, unsigned long long* cand, long long nb,
-                       int s, void* stream) {
-  return launch_factor_grid<double>(in, out, perm, work, cand, nb, s, stream);
+                       double* work, int* maps, long long nb, int s,
+                       void* stream) {
+  return launch_factor_grid<double>(in, out, perm, work, maps, nb, s, stream);
 }
 
-// 64-bit words of the grid design's candidate buffers (two buffers of a
-// (key, position) pair a block, at most one block an SM).
-int lu_factor_grid_words() {
+// 64-bit words of the grid design's position maps at s (two maps of s
+// ints a group, at most one group an SM).
+int lu_factor_grid_words(int s) {
   const panel::DeviceInfo* d = nullptr;
   if (panel::device_info(&d) != cudaSuccess) return -1;
-  return 4 * d->sms;
+  return (int)((long long)d->sms * s);
+}
+
+// The largest s the grid design takes on the current device (esize: 4 or
+// 8); -1 on an error.
+int lu_factor_grid_max_s(int esize) {
+  const panel::DeviceInfo* d = nullptr;
+  if (panel::device_info(&d) != cudaSuccess) return -1;
+  return esize == 8 ? grid_max_s<double>(d->cap) : grid_max_s<float>(d->cap);
 }
 
 int lu_solve_f32(const float* F, const int32_t* perm, const float* B,
@@ -1085,7 +1568,8 @@ int lu_factor_shared_bytes(int s, int esize) {
 }
 
 // The design a launch at s x s (esize: 4 or 8) takes on the current
-// device: lu_factor (which 0) 0 a warp a matrix, 1 panels, 2 the grid;
+// device: lu_factor (which 0) 0 a warp a matrix, 1 panels, 2 the grid
+// (32-column panels over the SMs);
 // lu_solve (which 1) 0 panels, 1 rows; -1 on an error.
 int lu_design(int which, int s, int esize) {
   const panel::DeviceInfo* d = nullptr;

@@ -25,7 +25,11 @@ block per matrix in 32-column panels (one named barrier a column inside a
 panel, three block barriers a panel, virtual row swaps), and where a matrix
 does not fit in a block's shared memory (float64 above s = 168, float32
 above 239) a cooperative grid over the SMs, the matrix in device memory,
-one grid-wide barrier a column. The solve goes in 32-row panels
+in 32-column panels: one block factors a panel, then every SM updates
+tiles of the trailing block, two grid-wide barriers a panel (a panel's
+rows past what the block's registers and shared memory hold, float64
+above s ~ 1300 and float32 above 2048, take their steps in device memory;
+s up to ~22000 in float64, ~25000 in float32). The solve goes in 32-row panels
 (csrc/panel_solve.cuh), three barriers a panel, the factor's panels staged
 in shared memory ahead of their use; where two panels do not fit (float64
 above s ~ 430), the same panels read the factor from device memory.
@@ -48,7 +52,8 @@ LIB = cuda_lib.CudaLibrary("lu_kernels", {
     "lu_solve_f64": (P, P, P, P, L, I, I, P),
     "lu_factor_grid_f32": (P, P, P, P, P, L, I, P),
     "lu_factor_grid_f64": (P, P, P, P, P, L, I, P),
-    "lu_factor_grid_words": (), "lu_design": (I, I, I),
+    "lu_factor_grid_words": (I,), "lu_factor_grid_max_s": (I,),
+    "lu_design": (I, I, I),
     "lu_factor_shared_bytes": (I, I), "lu_max_shared_bytes": ()})
 
 _TINY = 1e-30
@@ -139,11 +144,18 @@ def _max_shared_bytes(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_words(index: int) -> int:
-    """64-bit words of the grid design's candidate buffers on card
+def _grid_words(index: int, s: int) -> int:
+    """64-bit words of the grid design's position maps at s on card
     `index` (asked once)."""
     with torch.cuda.device(index):
-        return int(LIB.load().lu_factor_grid_words())
+        return int(LIB.load().lu_factor_grid_words(s))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_max_s(index: int, esize: int) -> int:
+    """The largest s the grid design takes on card `index` (asked once)."""
+    with torch.cuda.device(index):
+        return int(LIB.load().lu_factor_grid_max_s(esize))
 
 
 def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -166,12 +178,17 @@ def lu_factor(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cuda_lib.launch(LIB, "lu_factor", M.dtype, M.device, Mc.data_ptr(),
                         out.data_ptr(), perm.data_ptr(), nb, s)
     else:       # the grid design: the matrices stay in device memory
+        most = _grid_max_s(M.device.index, Mc.element_size())
+        if s > most:
+            raise ValueError(f"lu_factor: s={s} {M.dtype} is past a block's "
+                             f"shared memory and past the grid design's "
+                             f"s <= {most}")
         work = torch.empty_like(Mc)
-        cand = torch.empty(_grid_words(M.device.index), dtype=torch.int64,
+        maps = torch.empty(_grid_words(M.device.index, s), dtype=torch.int64,
                            device=M.device)
         cuda_lib.launch(LIB, "lu_factor_grid", M.dtype, M.device,
                         Mc.data_ptr(), out.data_ptr(), perm.data_ptr(),
-                        work.data_ptr(), cand.data_ptr(), nb, s)
+                        work.data_ptr(), maps.data_ptr(), nb, s)
     lu_factor.launches += 1
     cuda_lib.record("lu_factor", M.dtype, nb, s, s)
     return out, perm

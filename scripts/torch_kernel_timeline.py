@@ -14,14 +14,17 @@ of both trees: where a design's anchor is missing from a source, its
 stamps are left out.
 
 Runs (--only picks some), each once after a warm-up launch: cholesky at
-1 x N^2 (float64, N = 876 by default); solve_lower_t and solve_lower at
-1 x N, K = 2 and 566 (float64); solve_lower at 128 x 314, K = 2 and 64
-(float32); lu_solve at 512 x 158, K = 2 and 158 (float32); lu_factor at
-512 x 158^2, 32 x 145^2 and 2048 x 29^2 (float32) and 64 x 158^2
-(float64); gj_inverse at 512 x 158^2 and 32 x 145^2 (float32), 64 x 158^2
-and 4 x 145^2 (float64). Prints, per run, the span of block 0
-and the time summed over each kind of phase, with its count, and the
-kernel's own time by CUDA events over 20 launches. The stamps cost a few
+1 x N^2 (float64, N = 876 by default); cholesky_batched at 1536 x 105^2,
+1536 x 53^2 and 128 x 314^2 (float32), 1 x 96^2, 1 x 53^2 and 4 x 53^2
+(float64); solve_lower_t and solve_lower at 1 x N, K = 2 and 566
+(float64); solve_lower at 128 x 314, K = 2 and 64 (float32); lu_solve at
+512 x 158, K = 2 and 158 (float32); lu_factor at 512 x 158^2, 32 x 145^2
+and 2048 x 29^2 (float32), 64 x 158^2 (float64) and, on the grid design
+past shared memory, 1 x 694^2 (float64); gj_inverse at 512 x 158^2 and
+32 x 145^2 (float32), 64 x 158^2 and 4 x 145^2 (float64). Prints, per
+run, the span of block 0 and the time summed over each kind of phase,
+with its count, and the kernel's own time by CUDA events over 20
+launches. The stamps cost a few
 hundred nanoseconds each.
 """
 
@@ -238,6 +241,73 @@ EDITS = [
      "      if (i < s && k < s) out[(int64_t)i * s + k] = v[a][b];\n    }\n}",
      "      if (i < s && k < s) out[(int64_t)i * s + k] = v[a][b];\n    }\n"
      "  TS(115);\n}"),
+    # cholesky's shared-memory design (a block a matrix, the triangle in
+    # shared memory)
+    ("chol_kernels.cu",
+     "  __syncthreads();\n  // where entry (i, k), k <= i, lies\n",
+     "  __syncthreads(); TS(120);\n  // where entry (i, k), k <= i, lies\n"),
+    ("chol_kernels.cu",
+     "  __pipeline_wait_prior(0);\n  __syncthreads();\n\n  for (int p = 0;"
+     " p < np; ++p) {",
+     "  __pipeline_wait_prior(0);\n  __syncthreads(); TS(121);\n\n"
+     "  for (int p = 0; p < np; ++p) {"),
+    ("chol_kernels.cu",
+     "    __syncthreads();\n    if (j0 + kW >= n) break;",
+     "    __syncthreads(); TS(122);\n    if (j0 + kW >= n) break;"),
+    ("chol_kernels.cu",
+     "      for (int c = 0; c < kW; ++c) PT[c * ld + r] = x[c];\n    }\n"
+     "    __syncthreads();\n",
+     "      for (int c = 0; c < kW; ++c) PT[c * ld + r] = x[c];\n    }\n"
+     "    __syncthreads(); TS(123);\n"),
+    ("chol_kernels.cu",
+     "            if (i < n && k0 + q <= i) P[a0 + q * ldq + i] = acc[u][q];"
+     "\n        }\n      }\n    }\n    __syncthreads();\n",
+     "            if (i < n && k0 + q <= i) P[a0 + q * ldq + i] = acc[u][q];"
+     "\n        }\n      }\n    }\n    __syncthreads(); TS(124);\n"),
+    ("chol_kernels.cu",
+     "    for (int k = lane; k < n; k += 32) dst[k] = k <= i ? P[at(i, k)] "
+     ": T(0);\n  }\n}",
+     "    for (int k = lane; k < n; k += 32) dst[k] = k <= i ? P[at(i, k)] "
+     ": T(0);\n  }\n  TS(125);\n}"),
+    # lu_factor's blocked grid design (panels past a block's shared memory)
+    ("lu_kernels.cu",
+     "  const long long rounds = (nb + groups - 1) / groups;\n"
+     "  for (long long q = 0; q < rounds; ++q) {\n"
+     "    const long long mat = g",
+     "  const long long rounds = (nb + groups - 1) / groups;\n  TS(130);\n"
+     "  for (long long q = 0; q < rounds; ++q) {\n"
+     "    const long long mat = g"),
+    ("lu_kernels.cu", "    sync();\n    int p0 = 0;\n",
+     "    sync(); TS(131);\n    int p0 = 0;\n"),
+    ("lu_kernels.cu", "      sync();                                  // the "
+     "panel is factored\n",
+     "      TS(132); sync(); TS(133);\n"),
+    ("lu_kernels.cu", "      sync();                                  // the "
+     "trailing block is done\n",
+     "      TS(134); sync(); TS(135);\n"),
+    ("lu_kernels.cu", "    sync();                  // the group's map is "
+     "free for the next round\n",
+     "    TS(136); sync();\n"),
+    ("lu_kernels.cu", "    __syncthreads();                 // the "
+     "candidates of step jj\n    const unsigned won = pick_grid(",
+     "    TS(140); __syncthreads(); TS(141);\n"
+     "    const unsigned won = pick_grid("),
+    ("lu_kernels.cu", "    const bool mine = jj + 1 < kPW && reduce(bk, bp, "
+     "best);\n",
+     "    const bool mine = jj + 1 < kPW && reduce(bk, bp, best);\n"
+     "    TS(142);\n"),
+    ("lu_kernels.cu",
+     "    const int r0 = i0 + ti * kGT, c0 = i0 + tk * kGT;\n",
+     "    const int r0 = i0 + ti * kGT, c0 = i0 + tk * kGT; TS(150);\n"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                 // Ld and Lt are staged\n",
+     "    __syncthreads(); TS(151);\n"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                 // the U strip is solved\n",
+     "    __syncthreads(); TS(152);\n"),
+    ("lu_kernels.cu",
+     "    __syncthreads();                 // Lt and Us are free again\n",
+     "    __syncthreads(); TS(153);\n"),
 ]
 NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (2, 3): "panel rows",
@@ -282,11 +352,28 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          "arrive)",
          (114, 116): "tile update",
          (116, 112): "(one block: column j + 1)",
-         (116, 115): "write"}
+         (116, 115): "write",
+         (120, 121): "load", (121, 122): "diagonal block + barrier",
+         (124, 122): "diagonal block + barrier",
+         (122, 123): "rows below + barrier",
+         (123, 124): "trailing + barrier", (122, 125): "write",
+         (130, 131): "copy in + grid sync", (131, 140): "panel start",
+         (133, 134): "trailing tiles (none on block 0)",
+         (133, 150): "map, unit-L block", (150, 151): "tile loads + barrier",
+         (151, 152): "U strip + barrier", (152, 153): "tile update + barrier",
+         (153, 150): "(next tile)", (153, 134): "(tiles done)",
+         (134, 135): "grid sync (trailing)",
+         (135, 140): "panel start", (132, 133): "grid sync (panel)",
+         (140, 141): "step barrier",
+         (141, 142): "pick, multipliers, next column, reductions",
+         (142, 140): "rest of the rows, candidate row",
+         (142, 132): "write the panel back",
+         (131, 132): "last panel (one warp)",
+         (135, 132): "last panel (one warp)", (133, 136): "write out"}
 
 
-RUNS = ("cholesky", "solve_lower_t", "solve_lower", "lu_solve", "lu_factor",
-        "gj_inverse")
+RUNS = ("cholesky", "cholesky_batched", "solve_lower_t", "solve_lower",
+        "lu_solve", "lu_factor", "gj_inverse")
 
 
 def build(tree, tag, sources):
@@ -375,7 +462,8 @@ def main():
     print(smi, "| tree:", os.path.relpath(tree, REPO), flush=True)
     sources = [src for src, runs in (
         ("lu_kernels.cu", {"lu_factor", "lu_solve"}),
-        ("chol_kernels.cu", {"cholesky", "solve_lower_t", "solve_lower"}),
+        ("chol_kernels.cu", {"cholesky", "cholesky_batched", "solve_lower_t",
+                             "solve_lower"}),
         ("gj_kernels.cu", {"gj_inverse"})) if runs & set(only)]
     libs = build(tree, "this" if tree == REPO else "other", sources)
     ch, lu = libs.get("chol_kernels.cu"), libs.get("lu_kernels.cu")
@@ -409,6 +497,24 @@ def main():
                    fn(P(A.data_ptr()), P(F.data_ptr()), P(rec.data_ptr()),
                       L(nb), I(m), st))
             report(lu, run, f"lu_factor {nb} x {m}^2 {str(dt)[6:]}:")
+        # past a block's shared memory: the grid design's own entry (its
+        # position maps sized for either tree's)
+        for nb, m, dt in ((1, 694, f64),):
+            A = torch.randn(nb, m, m, generator=g, device="cuda", dtype=dt)
+            A.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
+            F, work = torch.empty_like(A), torch.empty_like(A)
+            rec = torch.empty(nb, m, dtype=torch.int32, device="cuda")
+            # this tree's words at m (its maps); a parent's entry takes no
+            # argument and gives its 4 words an SM
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            words = max(lu.lu_factor_grid_words(I(m)), 4 * sms)
+            maps = torch.empty(words, dtype=torch.int64, device="cuda")
+            run = (lambda A=A, F=F, rec=rec, work=work, maps=maps, nb=nb, m=m:
+                   checked(lu.lu_factor_grid_f64, P(A.data_ptr()),
+                           P(F.data_ptr()), P(rec.data_ptr()),
+                           P(work.data_ptr()), P(maps.data_ptr()), L(nb),
+                           I(m), st))
+            report(lu, run, f"lu_factor (grid) {nb} x {m}^2 float64:")
     if "gj_inverse" in only:
         gj = libs["gj_kernels.cu"]
         for nb, m, dt in ((512, 158, torch.float32), (32, 145, torch.float32),
@@ -421,6 +527,19 @@ def main():
                    checked(fn, P(Q.data_ptr()), P(out.data_ptr()), L(nb),
                            I(m), st))
             report(gj, run, f"gj_inverse {nb} x {m}^2 {str(dt)[6:]}:")
+    if "cholesky_batched" in only:
+        for nb, m, dt in ((1536, 105, torch.float32),
+                          (1536, 53, torch.float32),
+                          (128, 314, torch.float32), (1, 96, f64),
+                          (1, 53, f64), (4, 53, f64)):
+            Hb = spd(nb, m, dt)
+            Lb = torch.empty_like(Hb)
+            fn = getattr(ch, "cholesky_f32" if dt == torch.float32
+                         else "cholesky_f64")
+            run = (lambda fn=fn, Hb=Hb, Lb=Lb, nb=nb, m=m:
+                   checked(fn, P(Hb.data_ptr()), P(Lb.data_ptr()), L(nb),
+                           I(m), st))
+            report(ch, run, f"cholesky {nb} x {m}^2 {str(dt)[6:]}:")
     if "cholesky" not in only and "solve_lower_t" not in only \
             and "solve_lower" not in only and "lu_solve" not in only:
         return 0

@@ -244,3 +244,86 @@ def test_qr_back_substitution_equals_plain_on_card(card, nb, n, K, dtype):
     L = torch.as_tensor(L, dtype=dtype, device=card)
     B = torch.randn(nb, n, K, dtype=dtype, device=card)
     assert torch.equal(ck.solve_lower_t(L, B), ck.solve_lower_t_plain(L, B))
+
+
+def _spd_on_card(nb, n, dtype, device, seed):
+    """M M' + n I, made on the card from a seeded generator."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    M = torch.randn(nb, n, n, generator=gen, device=device,
+                    dtype=torch.float64)
+    eye = torch.eye(n, dtype=torch.float64, device=device)
+    return (M @ M.transpose(1, 2) + n * eye).to(dtype)
+
+
+def _largest_smem_n(dtype):
+    """The largest n the shared-memory design takes (chol_design's variant
+    1 for a batch that fills the card)."""
+    f = getattr(ck.LIB.load(), "chol_design_f32" if dtype == torch.float32
+                else "chol_design_f64")
+    n = 33
+    while f(3, 1536, n + 1, n + 1) == 1:
+        n += 1
+    return n
+
+
+# the batched designs: a warp a matrix up to n = 32, the triangle in shared
+# memory above it (up to its largest n), around the panel width and at
+# StagedCRQD's (53, 105) and bench.py's (314) widths, at one matrix, a few,
+# about a card's worth and StagedCRQD's 1536
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [1, 27, 96, 128, 1536])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 53, 105, 240, 314, "largest"])
+def test_batched_cholesky_designs_equal_plain(card, dtype, nb, n):
+    if n == "largest":
+        n = _largest_smem_n(dtype)
+    H = _spd_on_card(nb, n, dtype, card, seed=n + nb)
+    L = ck.cholesky(H)
+    assert torch.equal(L, ck.cholesky_plain(H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,n", [(1, 31), (27, 31), (1, 53), (96, 53),
+                                  (1536, 105), (128, 314)])
+def test_batched_designs_give_the_plain_nan(card, dtype, nb, n):
+    """Indefinite blocks (every other one negative definite, and one
+    turning indefinite at its last pivot) give the plain version's NaN, no
+    error; the SPD blocks stay bit for bit."""
+    H = _spd_on_card(nb, n, dtype, card, seed=n)
+    H[::2] = -H[::2]
+    H[-1, n - 1, n - 1] = -1e6
+    L, ref = ck.cholesky(H), ck.cholesky_plain(H)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(ref))
+    assert torch.equal(torch.isfinite(L), torch.isfinite(ref))
+    ok = torch.isfinite(ref).all(dim=-1).all(dim=-1)
+    assert torch.equal(L[ok], ref[ok])
+    assert not ok[::2].any() and not ok[-1]
+
+
+@pytest.mark.cuda
+def test_design_report_names_the_batched_designs(card):
+    """chol_design's variant query (which = 3): 0 a warp a matrix up to
+    n = 32, 1 the triangle in shared memory above it (float32 past 314,
+    float64 past 200), also for the few matrices the spread would give up
+    to 3 blocks each and one float64 matrix up to 212 wide, 2 the
+    device-memory design past that at a batch that fills the card, 3 the
+    spread (one 250-wide matrix), whose blocks a matrix query 0
+    reports (1 for the others)."""
+    lib = ck.LIB.load()
+    for f, big in ((lib.chol_design_f32, 314), (lib.chol_design_f64, 200)):
+        assert f(3, 1536, 32, 32) == 0 and f(3, 1, 27, 27) == 0
+        assert f(3, 1536, 33, 33) == 1 and f(3, 1536, big, big) == 1
+        assert f(3, 1, 53, 53) == 1 and f(3, 1, 96, 96) == 1
+        assert f(3, 1, 102, 102) == 1 and f(0, 1, 102, 102) == 1
+        assert f(3, 128, 340, 340) == 2 and f(0, 128, 340, 340) == 1
+        assert f(3, 1, 250, 250) == 3 and f(0, 1, 250, 250) >= 2
+    assert lib.chol_design_f32(3, 128, 314, 314) == 1
+    assert lib.chol_design_f32(3, 64, 314, 314) == 1
+    assert lib.chol_design_f32(3, 1, 314, 314) == 3
+    assert lib.chol_design_f64(3, 1, 209, 209) == 1
+    assert lib.chol_design_f64(3, 1, 224, 224) == 3
+    assert _largest_smem_n(torch.float32) >= 314
+    assert _largest_smem_n(torch.float64) >= 200

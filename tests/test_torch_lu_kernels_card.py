@@ -242,3 +242,48 @@ def test_lu_solve_rows_equals_plain_bit_for_bit(card, dtype, s, nb):
     for K in (1, 2, 31, 32, 33, 37, 65):
         B = torch.randn(nb, s, K, dtype=dtype, device=card, generator=gen)
         assert torch.equal(lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)), K
+
+
+# the blocked grid design past a block's shared memory: the first s past
+# it in each type (169 float64, 240 float32), the staged sweeps' 694, a
+# panel whose rows exceed the 512 a block holds in registers (694, 1000)
+# and one that does not (431), panels whose rows exceed what registers
+# and shared memory hold in either type (2100, 3000: those rows take
+# their steps in device memory), at one matrix (every SM on it) and a few
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [1, 2, 3])
+@pytest.mark.parametrize("s", [169, 240, 431, 694, 1000, 2100, 3000])
+def test_lu_factor_blocked_grid_equals_plain_bit_for_bit(card, dtype, nb, s):
+    M = _blocks(nb, s, dtype, card)
+    F, P = lk.lu_factor(M)
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp)
+    assert torch.equal(F, Fp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [694, 1000, 2100])
+def test_lu_factor_blocked_grid_ties_nan_and_floor_like_plain(card, dtype,
+                                                              s):
+    M = _hard_blocks(8, s, dtype, card)
+    F, P = lk.lu_factor(M)
+    Fp, Pp = lk.lu_factor_plain(M)
+    assert torch.equal(P, Pp)
+    assert _equal_or_both_nan(F, Fp)
+    assert torch.isnan(Fp[3]).any()
+
+
+@pytest.mark.cuda
+def test_lu_design_reports_the_blocked_grid(card):
+    """lu_design names the grid design (2) from the first s past a block's
+    shared memory on, the panel design (1) up to it; the grid design
+    takes both types well past the panels that shared memory holds (its
+    rows past them in device memory)."""
+    lib = lk.LIB.load()
+    assert lib.lu_design(0, 168, 8) == 1 and lib.lu_design(0, 169, 8) == 2
+    assert lib.lu_design(0, 239, 4) == 1 and lib.lu_design(0, 240, 4) == 2
+    assert lib.lu_design(0, 694, 8) == 2
+    assert lib.lu_factor_grid_max_s(8) > 20000
+    assert lib.lu_factor_grid_max_s(4) > 20000
