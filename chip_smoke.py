@@ -73,9 +73,9 @@ non-zero; nothing is caught and passed over):
      blocks against the plain version's NaN;
   quadrotor_gusto_softplus_staged: the softplus quadrotor (N=30, 180 exp
      blocks) in float64 on "staged_cr", "staged_crpl" and "staged_qr"
-     (their 694-wide arrow on lu_factor's grid design and lu_solve's rows
-     design), each SOLVED within 1e-3 of the JAX package's softplus cost;
-     and in float32
+     (their 694-wide arrow on lu_factor's grid design and lu_solve's
+     cluster design), each SOLVED within 1e-3 of the JAX package's
+     softplus cost; and in float32
      on the auto policy's "staged_cr" (status and cost recorded);
   conic_parser: GEOM programs (n = 2, 3, 4, 5, 7 and AM-GM) and the four
      closed-form KKT sensitivities (parser/variation.py) in float64 on the
@@ -342,10 +342,11 @@ def _design(torch, lk, ck, kernel, dt, nb, n, K):
     None for the Gauss-Jordan kernel."""
     if kernel in ("lu_factor", "lu_solve"):
         which = int(kernel == "lu_solve")
-        v = lk.LIB.load().lu_design(which, n, 8 if dt == torch.float64
+        v = lk.LIB.load().lu_design(which, nb, n, K, 8 if dt == torch.float64
                                     else 4)
-        assert v >= 0, (kernel, n, v)
-        names = (("warp", "panels", "grid panels"), ("panels", "rows"))
+        assert v >= 0, (kernel, nb, n, K, v)
+        names = (("warp", "panels", "grid panels"),
+                 ("panels", "rows", "clusters", "clusters of 16"))
         return names[which][v]
     which = {"cholesky": 0, "solve_lower": 1, "solve_lower_t": 2}.get(kernel)
     if which is None:
@@ -363,7 +364,8 @@ def _design(torch, lk, ck, kernel, dt, nb, n, K):
             return "thread a matrix"
         return ("warp a matrix", "one block, shared memory",
                 "one block, device memory")[variant]
-    return ("clusters", "panels", "one block (tri_solve)")[v]
+    return ("clusters", "panels", "one block (tri_solve)",
+            "wide clusters", "wide clusters of 16")[v]
 
 
 def _gj_shapes(shapes_by_path):
@@ -1456,8 +1458,8 @@ def phase_quadrotor_gusto_softplus_staged(torch, lk, ck):
     float64 set-up: in float64 on explicit "staged_cr" (the library LU, as
     the JAX package's takes XLA's), on "staged_crpl" (every LU on the LU
     kernels, the template's 694-wide arrow Schur complement on lu_factor's
-    grid design and lu_solve's rows design, since a float64 block fits in
-    shared memory only up to 168) and on "staged_qr" (R_k on
+    grid design and lu_solve's cluster design, since a float64 block fits
+    in shared memory only up to 168) and on "staged_qr" (R_k on
     solve_lower_t, the same arrow on the LU kernels): each SOLVED,
     feasible, within 1e-3 of the JAX package's softplus cost; then in
     float32 with

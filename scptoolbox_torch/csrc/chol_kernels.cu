@@ -100,6 +100,14 @@
 //     memory with cp.async two panels ahead, issued between the barrier's
 //     arrive and its wait; L does not change, so the copies need no
 //     barrier of their own.
+//   - solve_lower_t takes the cluster design of cluster_solve.cuh (shared
+//     with lu_solve) where this one's plan does not fit in shared memory
+//     (the free-flyer's 1593-wide float64 factor at K = 403, whose blocks
+//     own 224 rows: three staged panels and X's 26 columns need 264 KB)
+//     or gives a cluster more than 16 columns (876 x 566): two staged
+//     steps where three do not fit, clusters of 16 blocks where 8 do not,
+//     the diagonal blocks of many columns a thread a column and the rows
+//     past them in 4 x 4 register tiles.
 //
 // Bit for bit. Each entry takes its updates in the plain version's order:
 // in the factor, every trailing entry takes the panels' products in column
@@ -116,6 +124,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_solve.cuh"
 #include "panel_solve.cuh"
 
 namespace cg = cooperative_groups;
@@ -1353,15 +1362,16 @@ cudaError_t clusters_fit(const cudaLaunchConfig_t* cfg, int C, int* fit,
 // The cluster launch for nb matrices: as many clusters per matrix as the
 // card holds at once, each on a block of kc columns. *ok = false when the
 // card does not hold a cluster per matrix (or a block's rows do not fit in
-// shared memory): the caller takes a batched design. fit_out, when given,
-// receives the clusters the card holds at the first plan's size, asked
-// with or without the cache, and nothing is launched; nor is anything
-// launched on a dry run, which only sets *ok.
+// shared memory, or the plan gives a cluster more than max_kc columns):
+// the caller takes another design. fit_out, when given, receives the
+// clusters the card holds at the first plan's size, asked with or without
+// the cache, and nothing is launched; nor is anything launched on a dry
+// run, which only sets *ok.
 template <typename T, bool kFwd>
 cudaError_t launch_cluster(const T* L, const T* B, T* X, long long nb, int n,
                            int K, void* stream, bool* ok,
                            int* fit_out = nullptr, bool cached = true,
-                           bool dry_run = false) {
+                           bool dry_run = false, int max_kc = 64) {
   *ok = false;
   const panel::DeviceInfo* d = nullptr;
   cudaError_t e = panel::device_info(&d);
@@ -1405,6 +1415,7 @@ cudaError_t launch_cluster(const T* L, const T* B, T* X, long long nb, int n,
     cfg.dynamicSmemBytes = p.smem;
   }
   cfg.gridDim = dim3((unsigned)(C * ((K + p.kc - 1) / p.kc)), (unsigned)nb);
+  if (p.kc > max_kc) return cudaSuccess;
   *ok = true;
   if (dry_run) return cudaSuccess;
   e = cudaLaunchKernelEx(&cfg, solve_cluster_kernel<T, kFwd>, L, B, X, n, K,
@@ -1431,14 +1442,26 @@ int launch_solve_lower(const T* L, const T* B, T* X, long long nb, int n,
                                               (cudaStream_t)stream);
 }
 
-// L' X = B: the same choice, the panel design reading L' in place (its
-// panels' rows of L copied transposed into shared memory).
+// L' X = B: on clusters of up to 16 columns while the card holds one a
+// matrix, else on cluster_solve.cuh's clusters (past this plan's shared
+// memory or its 16 columns), else the batched designs as solve_lower,
+// the panel design reading L' in place (its panels' rows of L copied
+// transposed into shared memory).
+constexpr int kWideCols = 16;
+
 template <typename T>
 int launch_solve_t(const T* L, const T* B, T* X, long long nb, int n, int K,
                    void* stream) {
   bool ok = false;
-  cudaError_t e = launch_cluster<T, false>(L, B, X, nb, n, K, stream, &ok);
+  cudaError_t e = launch_cluster<T, false>(L, B, X, nb, n, K, stream, &ok,
+                                           nullptr, true, false, kWideCols);
   if (e != cudaSuccess || ok) return (int)e;
+  cluster::Plan cp;
+  e = cluster::plan<T, panel::kLowerT>(nb, n, K, &cp, &ok);
+  if (e != cudaSuccess) return (int)e;
+  if (ok)
+    return (int)cluster::launch<T, panel::kLowerT>(
+        cp, L, nullptr, B, X, nb, n, K, (cudaStream_t)stream);
   const panel::DeviceInfo* d = nullptr;
   e = panel::device_info(&d);
   if (e != cudaSuccess) return (int)e;
@@ -1466,8 +1489,9 @@ int cluster_fit(int fwd, int n, int K, long long nb, int cached) {
 // 2 or more: cholesky_spread_kernel), and (which 3) which of its designs:
 // 0 cholesky_warp_kernel, 1 cholesky_smem_kernel, 2 cholesky_kernel, 3
 // cholesky_spread_kernel; solve_lower (1) and solve_lower_t (2) 0 on
-// clusters, 1 on the panel design, 2 on tri_solve_kernel; minus the CUDA
-// error on failure. Nothing is launched.
+// clusters, 1 on the panel design, 2 on tri_solve_kernel, and
+// solve_lower_t 3 on cluster_solve.cuh's clusters of 8 blocks, 4 on its
+// clusters of 16; minus the CUDA error on failure. Nothing is launched.
 template <typename T>
 int design(int which, long long nb, int n, int K) {
   cudaError_t e;
@@ -1486,9 +1510,15 @@ int design(int which, long long nb, int n, int K) {
                                            true)
                  : launch_cluster<T, false>(nullptr, nullptr, nullptr, nb,
                                             n, K, nullptr, &ok, nullptr, true,
-                                            true);
+                                            true, kWideCols);
   if (e != cudaSuccess) return -(int)e;
   if (ok) return 0;
+  if (which == 2) {
+    cluster::Plan cp;
+    e = cluster::plan<T, panel::kLowerT>(nb, n, K, &cp, &ok);
+    if (e != cudaSuccess) return -(int)e;
+    if (ok) return cp.C > cluster::kPortable ? 4 : 3;
+  }
   const panel::DeviceInfo* d = nullptr;
   e = panel::device_info(&d);
   if (e != cudaSuccess) return -(int)e;

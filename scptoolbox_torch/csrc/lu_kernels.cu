@@ -74,10 +74,19 @@
 // tiles of up to 64 columns, the matrix index slowest, so that a matrix's
 // tiles read its factor from L2 together.
 // Where two of the factor's 32-column panels do not fit in shared memory
-// (float64 above s ~ 430), one block per matrix and up to 32 columns keeps
-// X's rows in shared memory and reads the factor from device memory: the
-// same 32-row panels, the diagonal block a thread per column in registers,
-// the rows past it a thread per entry.
+// (float64 above s = 427, float32 above 842: the softplus quadrotor's
+// 694-wide arrow), a few matrices take thread-block clusters
+// (cluster_solve.cuh): the panels dealt over a cluster of 8 blocks (16
+// where 8 do not hold their rows, float64 above s ~ 3000), X's rows in
+// their shared memory, every block gathering its rows of B through the
+// composed swaps, the factor's row segments staged coalesced ahead of
+// their step, one cluster barrier a panel in each pass; as many clusters a
+// matrix as the card holds share its columns. Past that (more matrices
+// than the card holds clusters, or float64 above s ~ 6100), one block per
+// matrix and up to 32 columns keeps X's rows in shared memory and reads
+// the factor from device memory: the same 32-row panels, the diagonal
+// block a thread per column in registers, the rows past it a thread per
+// entry.
 //
 // Built with -fmad=false so that multiplications and subtractions round
 // exactly as the plain PyTorch version's separate operations do. Every
@@ -92,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_solve.cuh"
 #include "panel_solve.cuh"
 
 namespace {
@@ -1478,8 +1488,9 @@ int launch_factor_grid(const T* in, T* out, int32_t* perm, T* work,
                                              G, groups, sr, d, stream);
 }
 
-// The panel design where one column's plan fits in shared memory, else the
-// rows design, columns a block halved until it fits.
+// The panel design where one column's plan fits in shared memory, else
+// clusters where the card holds one a matrix and a block's rows fit, else
+// the rows design, columns a block halved until it fits.
 template <typename T>
 int launch_solve(const T* F, const int32_t* perm, const T* B, T* X,
                  long long nb, int s, int K, void* stream) {
@@ -1489,6 +1500,13 @@ int launch_solve(const T* F, const int32_t* perm, const T* B, T* X,
   if (panel::fits<T>(panel::kLU, s, d->cap))
     return (int)panel::launch<T, panel::kLU>(F, perm, B, X, nb, s, K, *d,
                                              (cudaStream_t)stream);
+  cluster::Plan cp;
+  bool ok = false;
+  e = cluster::plan<T, panel::kLU>(nb, s, K, &cp, &ok);
+  if (e != cudaSuccess) return (int)e;
+  if (ok)
+    return (int)cluster::launch<T, panel::kLU>(cp, F, perm, B, X, nb, s, K,
+                                               (cudaStream_t)stream);
   int kb = K < kRowsCols ? K : kRowsCols;
   while (kb > 1 && rows_smem_bytes<T>(s, kb) > (size_t)d->cap)
     kb = (kb + 1) / 2;
@@ -1506,6 +1524,17 @@ int launch_solve(const T* F, const int32_t* perm, const T* B, T* X,
   lu_solve_rows_kernel<T><<<grid, kRowsThreads, smem, (cudaStream_t)stream>>>(
       F, perm, B, X, s, K, kb);
   return (int)cudaGetLastError();
+}
+
+// lu_solve's design (see lu_design).
+template <typename T>
+int solve_design(long long nb, int s, int K, const panel::DeviceInfo* d) {
+  if (panel::fits<T>(panel::kLU, s, d->cap)) return 0;
+  cluster::Plan cp;
+  bool ok = false;
+  if (cluster::plan<T, panel::kLU>(nb, s, K, &cp, &ok) != cudaSuccess)
+    return -1;
+  return !ok ? 1 : cp.C > cluster::kPortable ? 3 : 2;
 }
 
 }  // namespace
@@ -1567,11 +1596,12 @@ int lu_factor_shared_bytes(int s, int esize) {
                           : panel_smem_bytes<float>(s));
 }
 
-// The design a launch at s x s (esize: 4 or 8) takes on the current
-// device: lu_factor (which 0) 0 a warp a matrix, 1 panels, 2 the grid
-// (32-column panels over the SMs);
-// lu_solve (which 1) 0 panels, 1 rows; -1 on an error.
-int lu_design(int which, int s, int esize) {
+// The design a launch takes on the current device (esize: 4 or 8):
+// lu_factor (which 0) at s x s 0 a warp a matrix, 1 panels, 2 the grid
+// (32-column panels over the SMs); lu_solve (which 1) of nb matrices at s
+// x s and K columns 0 panels, 1 rows, 2 clusters of 8 blocks, 3 clusters
+// of 16; -1 on an error. Nothing is launched.
+int lu_design(int which, long long nb, int s, int K, int esize) {
   const panel::DeviceInfo* d = nullptr;
   if (panel::device_info(&d) != cudaSuccess) return -1;
   if (which == 0) {
@@ -1580,9 +1610,8 @@ int lu_design(int which, int s, int esize) {
                                    : panel_smem_bytes<float>(s);
     return need <= (size_t)d->cap ? 1 : 2;
   }
-  const bool fits = esize == 8 ? panel::fits<double>(panel::kLU, s, d->cap)
-                               : panel::fits<float>(panel::kLU, s, d->cap);
-  return fits ? 0 : 1;
+  return esize == 8 ? solve_design<double>(nb, s, K, d)
+                    : solve_design<float>(nb, s, K, d);
 }
 
 int lu_max_shared_bytes() {

@@ -32,7 +32,11 @@ above s ~ 1300 and float32 above 2048, take their steps in device memory;
 s up to ~22000 in float64, ~25000 in float32). The solve goes in 32-row panels
 (csrc/panel_solve.cuh), three barriers a panel, the factor's panels staged
 in shared memory ahead of their use; where two panels do not fit (float64
-above s ~ 430), the same panels read the factor from device memory.
+above s = 427, float32 above 842), a few matrices take thread-block
+clusters (csrc/cluster_solve.cuh: the panels dealt over 8 or 16 blocks, one
+cluster barrier a panel), and past those (more matrices than the card
+holds clusters, or float64 above s ~ 6100) the same panels read the factor
+from device memory on one block a matrix.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ LIB = cuda_lib.CudaLibrary("lu_kernels", {
     "lu_factor_grid_f32": (P, P, P, P, P, L, I, P),
     "lu_factor_grid_f64": (P, P, P, P, P, L, I, P),
     "lu_factor_grid_words": (I,), "lu_factor_grid_max_s": (I,),
-    "lu_design": (I, I, I),
+    "lu_design": (I, L, I, I, I),
     "lu_factor_shared_bytes": (I, I), "lu_max_shared_bytes": ()})
 
 _TINY = 1e-30

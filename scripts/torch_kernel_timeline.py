@@ -2,7 +2,8 @@
 """Phase timeline inside the port's LU, substitution and Cholesky kernels
 (scptoolbox_torch/csrc/) on one GPU, from %globaltimer stamps.
 
-    python3 scripts/torch_kernel_timeline.py [--tree DIR] [--n N] [--only K,..]
+    python3 scripts/torch_kernel_timeline.py [--tree DIR] [--n N,..]
+        [--ks K,..] [--only RUN,..] [--ptxas NAME]
 
 No profiler on the card sees inside a kernel, so this copies the kernel
 sources of a tree (this checkout, or DIR: an unpacked tree of another
@@ -14,18 +15,18 @@ of both trees: where a design's anchor is missing from a source, its
 stamps are left out.
 
 Runs (--only picks some), each once after a warm-up launch: cholesky at
-1 x N^2 (float64, N = 876 by default); cholesky_batched at 1536 x 105^2,
-1536 x 53^2 and 128 x 314^2 (float32), 1 x 96^2, 1 x 53^2 and 4 x 53^2
-(float64); solve_lower_t and solve_lower at 1 x N, K = 2 and 566
-(float64); solve_lower at 128 x 314, K = 2 and 64 (float32); lu_solve at
-512 x 158, K = 2 and 158 (float32); lu_factor at 512 x 158^2, 32 x 145^2
-and 2048 x 29^2 (float32), 64 x 158^2 (float64) and, on the grid design
-past shared memory, 1 x 694^2 (float64); gj_inverse at 512 x 158^2 and
-32 x 145^2 (float32), 64 x 158^2 and 4 x 145^2 (float64). Prints, per
-run, the span of block 0 and the time summed over each kind of phase,
-with its count, and the kernel's own time by CUDA events over 20
-launches. The stamps cost a few
-hundred nanoseconds each.
+1 x N^2 (float64, N = 876 by default; --n takes several); cholesky_batched
+at 1536 x 105^2, 1536 x 53^2 and 128 x 314^2 (float32), 1 x 96^2, 1 x 53^2
+and 4 x 53^2 (float64); solve_lower_t and solve_lower at 1 x N, K = 2 and
+566 (--ks picks others; float64); solve_lower at 128 x 314, K = 2 and 64
+(float32); lu_solve at 512 x 158, K = 2 and 158 (float32) and, past the
+panel design's shared memory, 1 x 694, K = 2 and 37 (float64); lu_factor
+at 512 x 158^2, 32 x 145^2 and 2048 x 29^2 (float32), 64 x 158^2 (float64)
+and, on the grid design past shared memory, 1 x 694^2 (float64);
+gj_inverse at 512 x 158^2 and 32 x 145^2 (float32), 64 x 158^2 and 4 x
+145^2 (float64). Prints, per run, the span of block 0 and the time summed
+over each kind of phase, with its count, and the kernel's own time by CUDA
+events over 20 launches. The stamps cost a few hundred nanoseconds each.
 """
 
 import argparse
@@ -75,7 +76,32 @@ EDITS = [
      "    TS(3); grid.sync(); TS(4);\n\n    // (B)"),
     ("chol_kernels.cu", "    grid.sync();\n  }\n}",
      "    TS(5); grid.sync(); TS(6);\n  }\n}"),
-    # the cluster solves (both directions)
+    # the cluster solves (solve_lower, solve_lower_t and lu_solve)
+    ("cluster_solve.cuh", "cg::cluster_group cluster = cg::this_cluster();",
+     "cg::cluster_group cluster = cg::this_cluster(); int slot_ = 0;"),
+    ("cluster_solve.cuh",
+     "__syncthreads();            // this block is done with step g - 1",
+     "__syncthreads(); TS(11);"),
+    ("cluster_solve.cuh",
+     'asm volatile("barrier.cluster.arrive.release;" ::: "memory");',
+     'TS(12); asm volatile("barrier.cluster.arrive.release;" ::: "memory");'),
+    ("cluster_solve.cuh",
+     'asm volatile("barrier.cluster.wait.acquire;" ::: "memory");',
+     'TS(13); asm volatile("barrier.cluster.wait.acquire;" ::: "memory");'
+     " TS(14);"),
+    ("cluster_solve.cuh", "      solve_panel(g + 1, prev);",
+     "      TS(16); solve_panel(g + 1, prev); TS(17);"),
+    ("cluster_solve.cuh",
+     "    __syncthreads();\n    T* xo = xs + slot(g) * kW * kc;\n",
+     "    TS(18); __syncthreads(); TS(19);\n"
+     "    T* xo = xs + slot(g) * kW * kc;\n"),
+    ("cluster_solve.cuh",
+     "        cluster.map_shared_rank(xo, b)[r * kc + c] = v;\n    }\n",
+     "        cluster.map_shared_rank(xo, b)[r * kc + c] = v;\n    }\n"
+     "    TS(15);\n"),
+    ("cluster_solve.cuh", "  cluster.sync();                 // every block",
+     "  TS(9); cluster.sync(); TS(10);                 // every block"),
+    # the cluster solves of the earlier source (both directions)
     ("chol_kernels.cu", "cg::cluster_group cluster = cg::this_cluster();",
      "cg::cluster_group cluster = cg::this_cluster(); int slot_ = 0;"),
     ("chol_kernels.cu",
@@ -308,6 +334,50 @@ EDITS = [
     ("lu_kernels.cu",
      "    __syncthreads();                 // Lt and Us are free again\n",
      "    __syncthreads(); TS(153);\n"),
+    # lu_solve's rows design (X in shared memory, the factor read in
+    # device memory a row a thread)
+    ("lu_kernels.cu", "  const T* f = F + mat * (int64_t)s * s;\n\n"
+     "  for (int i = tid; i < s; i += nt) idx[i] = i;\n",
+     "  const T* f = F + mat * (int64_t)s * s;\n  TS(160);\n"
+     "  for (int i = tid; i < s; i += nt) idx[i] = i;\n"),
+    ("lu_kernels.cu", "  }\n  __syncthreads();\n  for (int e = tid; e < s * kw;"
+     " e += nt) {\n    const int i = e / kw, c = e - (e / kw) * kw;\n"
+     "    Xs[(size_t)i * kb + c] = B[",
+     "  }\n  __syncthreads(); TS(161);\n  for (int e = tid; e < s * kw;"
+     " e += nt) {\n    const int i = e / kw, c = e - (e / kw) * kw;\n"
+     "    Xs[(size_t)i * kb + c] = B["),
+    ("lu_kernels.cu", "  // unit-L forward\n", "  TS(162);\n  // unit-L "
+     "forward\n"),
+    ("lu_kernels.cu", "    if (tid < kw) {\n      T x[kD];\n#pragma unroll\n"
+     "      for (int a = 0; a < kD; ++a)\n        x[a] = a < w ? "
+     "Xs[(size_t)(p0 + a) * kb + tid] : T(0);\n#pragma unroll\n"
+     "      for (int t = 0; t < kD; ++t) {",
+     "    TS(163);\n    if (tid < kw) {\n      T x[kD];\n#pragma unroll\n"
+     "      for (int a = 0; a < kD; ++a)\n        x[a] = a < w ? "
+     "Xs[(size_t)(p0 + a) * kb + tid] : T(0);\n#pragma unroll\n"
+     "      for (int t = 0; t < kD; ++t) {"),
+    ("lu_kernels.cu", "    const int r0 = p0 + w;\n",
+     "    TS(164);\n    const int r0 = p0 + w;\n"),
+    ("lu_kernels.cu", "    __syncthreads();\n  }\n\n  // U backward",
+     "    TS(165); __syncthreads();\n  }\n  TS(166);\n\n  // U backward"),
+    ("lu_kernels.cu", "    if (tid < kw) {\n      T x[kD];\n#pragma unroll\n"
+     "      for (int a = 0; a < kD; ++a)\n        x[a] = a < w ? "
+     "Xs[(size_t)(p0 + a) * kb + tid] : T(0);\n#pragma unroll\n"
+     "      for (int t = kD - 1",
+     "    TS(167);\n    if (tid < kw) {\n      T x[kD];\n#pragma unroll\n"
+     "      for (int a = 0; a < kD; ++a)\n        x[a] = a < w ? "
+     "Xs[(size_t)(p0 + a) * kb + tid] : T(0);\n#pragma unroll\n"
+     "      for (int t = kD - 1"),
+    ("lu_kernels.cu", "    for (int e = tid; e < p0 * kw; e += nt) {\n",
+     "    TS(168);\n    for (int e = tid; e < p0 * kw; e += nt) {\n"),
+    ("lu_kernels.cu", "      Xs[(size_t)i * kb + c] = acc;\n    }\n"
+     "    __syncthreads();\n  }\n  for (int e = tid;",
+     "      Xs[(size_t)i * kb + c] = acc;\n    }\n"
+     "    TS(169); __syncthreads();\n  }\n  TS(170);\n  for (int e = tid;"),
+    ("lu_kernels.cu", "        Xs[(size_t)i * kb + c] * pivot_recip(f[(int64_t)"
+     "i * s + i]);\n  }\n}",
+     "        Xs[(size_t)i * kb + c] * pivot_recip(f[(int64_t)"
+     "i * s + i]);\n  }\n  TS(171);\n}"),
 ]
 NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (2, 3): "panel rows",
@@ -315,6 +385,11 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (11, 12): "(block sync)", (12, 13): "copies issued",
          (13, 14): "cluster wait", (14, 16): "(block sync)",
          (16, 17): "owner: its panel's update and solve",
+         (16, 18): "owner: its panel's update and diagonal block",
+         (18, 19): "owner: barrier", (19, 15): "owner: publish (DSMEM)",
+         (15, 17): "(owner done)", (10, 16): "first copies, wait",
+         (9, 10): "cluster sync (start)", (15, 11): "(first panel done)",
+         (10, 11): "(start)",
          (17, 11): "other rows update",
          (14, 11): "rows update",
          (40, 41): "diagonal block + barrier",
@@ -369,15 +444,28 @@ NAMES = {(1, 2): "diagonal block", (6, 2): "diagonal block",
          (142, 140): "rest of the rows, candidate row",
          (142, 132): "write the panel back",
          (131, 132): "last panel (one warp)",
-         (135, 132): "last panel (one warp)", (133, 136): "write out"}
+         (135, 132): "last panel (one warp)", (133, 136): "write out",
+         (160, 161): "permutation (thread 0) + barrier",
+         (161, 162): "gather", (162, 163): "stage D + barrier",
+         (165, 163): "barrier + stage D + barrier",
+         (163, 164): "diagonal block + barrier",
+         (164, 165): "rows past the panel (factor in device memory)",
+         (165, 166): "(last barrier)",
+         (166, 167): "stage D, recips + barrier",
+         (169, 167): "barrier + stage D, recips + barrier",
+         (167, 168): "diagonal block + barrier (backward)",
+         (168, 169): "rows past the panel (backward)",
+         (169, 170): "(last barrier)", (170, 171): "scale, write X"}
 
 
 RUNS = ("cholesky", "cholesky_batched", "solve_lower_t", "solve_lower",
         "lu_solve", "lu_factor", "gj_inverse")
 
 
-def build(tree, tag, sources):
-    """Stamped copies of tree's kernel sources, built; {source: CDLL}."""
+def build(tree, tag, sources, ptxas=None):
+    """Stamped copies of tree's kernel sources, built; {source: CDLL}.
+    ptxas: print nvcc's register and spill report of the kernels whose
+    mangled names contain it."""
     src = os.path.join(tree, "scptoolbox_torch", "csrc")
     out = os.path.join(REPO, "_archive", "timeline", tag)
     shutil.rmtree(out, ignore_errors=True)
@@ -401,9 +489,19 @@ def build(tree, tag, sources):
         procs.append((name, so, subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-o",
-             so, os.path.join(out, name)])))
+             so, os.path.join(out, name)] + (["-Xptxas", "-v"] if ptxas
+                                             else []),
+            stderr=subprocess.PIPE, text=True)))
     for name, so, proc in procs:
-        assert proc.wait() == 0, f"nvcc failed on {name}"
+        err = proc.communicate()[1]
+        assert proc.returncode == 0, f"nvcc failed on {name}:\n{err}"
+        lines = err.splitlines()
+        for i, line in enumerate(lines):
+            if ptxas and "Compiling entry function" in line \
+                    and ptxas in line:
+                print(name, line.split("'")[1], "|",
+                      " ".join(x.strip() for x in lines[i + 1:i + 5]
+                               if "Compiling" not in x), flush=True)
         lib = ctypes.CDLL(so)
         lib.read_tlog.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int]
@@ -449,11 +547,17 @@ def report(lib, run, what):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO)
-    ap.add_argument("--n", type=int, default=876)
+    ap.add_argument("--n", default="876",
+                    help="sizes of the 1 x N runs, comma-separated")
+    ap.add_argument("--ks", default="2,566",
+                    help="columns of the 1 x N solves")
+    ap.add_argument("--ptxas", default=None,
+                    help="print the register and spill report of the "
+                    "kernels whose mangled names contain this")
     ap.add_argument("--only", default=",".join(RUNS),
                     help="comma-separated subset of " + ",".join(RUNS))
     args = ap.parse_args()
-    n = args.n
+    ns = [int(v) for v in args.n.split(",")]
     only = args.only.split(",")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -465,7 +569,8 @@ def main():
         ("chol_kernels.cu", {"cholesky", "cholesky_batched", "solve_lower_t",
                              "solve_lower"}),
         ("gj_kernels.cu", {"gj_inverse"})) if runs & set(only)]
-    libs = build(tree, "this" if tree == REPO else "other", sources)
+    libs = build(tree, "this" if tree == REPO else "other", sources,
+                 args.ptxas)
     ch, lu = libs.get("chol_kernels.cu"), libs.get("lu_kernels.cu")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     st = P(torch.cuda.current_stream().cuda_stream)
@@ -543,19 +648,21 @@ def main():
     if "cholesky" not in only and "solve_lower_t" not in only \
             and "solve_lower" not in only and "lu_solve" not in only:
         return 0
-    H = spd(1, n, f64)
-    Lf = torch.empty_like(H)
-    chol = lambda: ch.cholesky_f64(P(H.data_ptr()), P(Lf.data_ptr()), L(1),
-                                   I(n), st)
-    chol()
-    if "cholesky" in only:
-        report(ch, chol, f"cholesky 1 x {n}^2 float64:")
-    for fn in ("solve_lower_t", "solve_lower"):
-        if fn not in only:
-            continue
-        for K in (2, 566):
-            report(ch, run_solve(ch, f"{fn}_f64", Lf, 1, n, K, f64),
-                   f"{fn} 1 x {n}, K={K} float64:")
+    for n in ns:
+        H = spd(1, n, f64)
+        Lf = torch.empty_like(H)
+        chol = (lambda H=H, Lf=Lf, n=n:
+                ch.cholesky_f64(P(H.data_ptr()), P(Lf.data_ptr()), L(1),
+                                I(n), st))
+        chol()
+        if "cholesky" in only:
+            report(ch, chol, f"cholesky 1 x {n}^2 float64:")
+        for fn in ("solve_lower_t", "solve_lower"):
+            if fn not in only:
+                continue
+            for K in (int(k) for k in args.ks.split(",")):
+                report(ch, run_solve(ch, f"{fn}_f64", Lf, 1, n, K, f64),
+                       f"{fn} 1 x {n}, K={K} float64:")
     Hb = spd(128, 314, torch.float32)
     Lb = torch.linalg.cholesky(Hb).contiguous()   # any lower factor does
     for K in ((2, 64) if "solve_lower" in only else ()):
@@ -574,6 +681,20 @@ def main():
                                       P(B.data_ptr()), P(X.data_ptr()),
                                       L(512), I(158), I(K), st)
         report(lu, run, f"lu_solve 512 x 158, K={K} float32:")
+    # the softplus quadrotor's arrow: past the panel design's shared memory
+    M = torch.randn(1, 694, 694, generator=g, device="cuda", dtype=f64)
+    M.diagonal(dim1=-2, dim2=-1).mul_(1e-7)
+    F, piv = torch.linalg.lu_factor(M)
+    F = F.contiguous()
+    perm = (piv - 1).to(torch.int32).contiguous()
+    for K in ((2, 37) if "lu_solve" in only else ()):
+        B = torch.randn(1, 694, K, generator=g, device="cuda", dtype=f64)
+        X = torch.empty_like(B)
+        run = (lambda B=B, X=X, K=K:
+               checked(lu.lu_solve_f64, P(F.data_ptr()), P(perm.data_ptr()),
+                       P(B.data_ptr()), P(X.data_ptr()), L(1), I(694), I(K),
+                       st))
+        report(lu, run, f"lu_solve 1 x 694, K={K} float64:")
     return 0
 
 

@@ -172,8 +172,11 @@ def test_design_report_matches_the_launchers(card):
     card, else the cooperative spread; the solves on clusters at up to 16
     matrices of more than one 32-row panel, else on panels, or one block a
     matrix where two panels of n rows do not fit in shared memory (n=541
-    float64); and the kernels launched at those shapes still equal their
-    plain versions."""
+    float64); solve_lower_t on cluster_solve.cuh's clusters of 8 (3) past
+    16 columns a cluster (876 x 566) and at the free-flyer's 1593-wide
+    factor at K = 403, of 16 (4) at 2400 x 403, where solve_lower keeps
+    its clusters (0) or one block (2); and the kernels launched at those
+    shapes still equal their plain versions."""
     lib = ck.LIB.load()
     f64, f32 = lib.chol_design_f64, lib.chol_design_f32
     assert f64(0, 1, 27, 27) == f64(0, 1, 53, 53) == 1
@@ -183,6 +186,10 @@ def test_design_report_matches_the_launchers(card):
         assert f64(which, 1, 403, 234) == 0 and f64(which, 8, 186, 2) == 0
         assert f64(which, 8, 27, 2) == 1 and f32(which, 128, 314, 64) == 1
         assert f64(which, 64, 541, 2) == 2
+        assert f64(which, 1, 1593, 2) == 0
+    assert f64(2, 1, 876, 566) == 3 and f64(1, 1, 876, 566) == 0
+    assert f64(2, 1, 1593, 403) == 3 and f64(1, 1, 1593, 403) == 2
+    assert f64(2, 1, 2400, 403) == 4 and f64(1, 1, 2400, 403) == 2
     for nb, n, K in ((1, 403, 234), (8, 27, 2), (64, 541, 2)):
         H = _spd(nb, n, torch.float64, card)
         B = torch.as_tensor(np.random.default_rng(1).standard_normal(
@@ -192,6 +199,24 @@ def test_design_report_matches_the_launchers(card):
         assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
         assert torch.equal(ck.solve_lower_t(L, B),
                            ck.solve_lower_t_plain(L, B))
+
+
+# the free-flyer GuSTO step's Cholesky ladder (H 1593^2 float64: HiAE =
+# cho_solve(L_H, A_E') at K = 403, the vector solves at K = 2) and one
+# larger factor, where solve_lower_t takes cluster_solve.cuh's clusters of
+# 8 with two staged steps (1593 x 403) or of 16 blocks (2400 x 403);
+# solve_lower at the same shapes (clusters, or one block where its plan
+# does not fit)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K", [(1593, 2), (1593, 37), (1593, 403),
+                                 (2400, 2), (2400, 403)])
+def test_solves_at_the_free_flyer_factor_equal_plain(card, n, K):
+    L = ck.cholesky(_spd_on_card(1, n, torch.float64, card, seed=n))
+    gen = torch.Generator(device=card)
+    gen.manual_seed(K)
+    B = torch.randn(1, n, K, dtype=torch.float64, device=card, generator=gen)
+    assert torch.equal(ck.solve_lower_t(L, B), ck.solve_lower_t_plain(L, B))
+    assert torch.equal(ck.solve_lower(L, B), ck.solve_lower_plain(L, B))
 
 
 # the staged KKTs' groups: StagedCRQD's ridge ladder on the Starship

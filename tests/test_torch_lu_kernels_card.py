@@ -219,8 +219,18 @@ def test_lu_solve_floor_and_nan_like_plain(card, dtype, K, s):
 def test_lu_solve_refuses_panels_beyond_shared_memory(card):
     """Two staged 32-column panels of a 500-wide float64 factor (264 KB) do
     not fit in a block's shared memory: the panel design refuses them and
-    the launch takes the rows design, bit for bit as the plain version."""
+    the launch takes the cluster design (lu_design 2), bit for bit as the
+    plain version; past a float64 block's rows on clusters of 16 (s =
+    6500) and past the clusters the card holds (20 matrices) it takes the
+    rows design (1)."""
     s = 500
+    lib = lk.LIB.load()
+    assert lib.lu_design(1, 1, 427, 2, 8) == 0
+    assert lib.lu_design(1, 1, 428, 2, 8) == 2
+    assert lib.lu_design(1, 1, s, 2, 8) == 2
+    assert lib.lu_design(1, 1, 4500, 2, 8) == 3
+    assert lib.lu_design(1, 1, 6500, 2, 8) == 1
+    assert lib.lu_design(1, 20, s, 2, 8) == 1
     F = torch.eye(s, dtype=torch.float64, device=card)[None]
     rec = torch.arange(s, dtype=torch.int32, device=card)[None]
     B = torch.randn(1, s, 2, dtype=torch.float64, device=card)
@@ -228,20 +238,65 @@ def test_lu_solve_refuses_panels_beyond_shared_memory(card):
     assert torch.equal(X, lk.lu_solve_plain((F, rec), B))
 
 
-# the rows design (factors whose panels do not fit in shared memory) at the
-# column counts around its 32-column blocks, with pivots and the floor
+# the rows design, past the cluster design's reach (more matrices than the
+# card holds clusters, and a float64 factor whose rows do not fit a block
+# of a cluster of 16), at the column counts around its 32-column blocks,
+# with pivots and the floor
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,s,nb", [(torch.float64, 500, 3),
-                                        (torch.float64, 694, 1),
-                                        (torch.float64, 694, 4),
-                                        (torch.float32, 900, 2)])
+@pytest.mark.parametrize("dtype,s,nb", [(torch.float64, 500, 20),
+                                        (torch.float64, 694, 17),
+                                        (torch.float64, 6500, 1),
+                                        (torch.float32, 900, 17)])
 def test_lu_solve_rows_equals_plain_bit_for_bit(card, dtype, s, nb):
     fac = lk.lu_factor(_blocks(nb, s, dtype, card))
     gen = torch.Generator(device=card)
     gen.manual_seed(s + nb)
+    esize = 8 if dtype == torch.float64 else 4
     for K in (1, 2, 31, 32, 33, 37, 65):
+        assert lk.LIB.load().lu_design(1, nb, s, K, esize) == 1, K
         B = torch.randn(nb, s, K, dtype=dtype, device=card, generator=gen)
         assert torch.equal(lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)), K
+
+
+# the cluster design (a few factors whose panels do not fit in shared
+# memory: float64 past s ~ 430, float32 past ~ 840; the softplus
+# quadrotor's arrow is 694 wide), on clusters of 8 and, past what their
+# blocks hold (3500 float64), of 16, at one matrix, a few, and column
+# counts around its warps
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb", [1, 2, 3])
+@pytest.mark.parametrize("s", [431, 500, 694, 1000, 1500, 2100, 3500])
+def test_lu_solve_cluster_equals_plain_bit_for_bit(card, dtype, nb, s):
+    fac = lk.lu_factor(_blocks(nb, s, dtype, card))
+    gen = torch.Generator(device=card)
+    gen.manual_seed(s + nb)
+    esize = 8 if dtype == torch.float64 else 4
+    for K in (1, 2, 37, 64):
+        design = lk.LIB.load().lu_design(1, nb, s, K, esize)
+        if esize == 4:
+            want = 0 if s <= 842 else 2       # 842: the panels still fit
+        else:
+            want = 3 if s >= 3500 else 2
+        assert design == want, (K, design)
+        B = torch.randn(nb, s, K, dtype=dtype, device=card, generator=gen)
+        assert torch.equal(lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)), K
+
+
+# ties after swaps, an all-zero column, a NaN and pivots below the floor,
+# factored and solved on the cluster design
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb,s", [(1, 694), (3, 694), (2, 1000)])
+def test_lu_solve_cluster_ties_nan_and_floor_like_plain(card, dtype, nb, s):
+    M = _hard_blocks(8, s, dtype, card)
+    M = M[:1] if nb == 1 else M[2:2 + nb]    # blocks 2: the floor, 3: a NaN
+    fac = lk.lu_factor(M)
+    B = torch.randn(nb, s, 37, dtype=dtype, device=card)
+    X, Xp = lk.lu_solve(fac, B), lk.lu_solve_plain(fac, B)
+    assert _equal_or_both_nan(X, Xp)
+    if nb > 1:
+        assert torch.isnan(Xp[1]).any()
 
 
 # the blocked grid design past a block's shared memory: the first s past
@@ -282,8 +337,9 @@ def test_lu_design_reports_the_blocked_grid(card):
     takes both types well past the panels that shared memory holds (its
     rows past them in device memory)."""
     lib = lk.LIB.load()
-    assert lib.lu_design(0, 168, 8) == 1 and lib.lu_design(0, 169, 8) == 2
-    assert lib.lu_design(0, 239, 4) == 1 and lib.lu_design(0, 240, 4) == 2
-    assert lib.lu_design(0, 694, 8) == 2
+    design = lambda s, esize: lib.lu_design(0, 1, s, s, esize)
+    assert design(168, 8) == 1 and design(169, 8) == 2
+    assert design(239, 4) == 1 and design(240, 4) == 2
+    assert design(694, 8) == 2
     assert lib.lu_factor_grid_max_s(8) > 20000
     assert lib.lu_factor_grid_max_s(4) > 20000
